@@ -5,6 +5,11 @@ with a plain C entry point, loaded with ctypes (no PyTorch headers, so a build
 takes seconds). Libraries go to `_build/` beside this file, named by a hash of
 the sources and flags, and are built at first use. `build()` starts one `nvcc`
 per missing library, all at once, and waits for them together.
+
+Two kinds of source: the fixed ones of `csrc/` (`KERNELS`), and sources
+generated per scene (the fused step, ops/gpu_step.py), which
+`add_generated` writes into `_build/` under a name that hashes the generated
+text, the headers of `csrc/` and the flags.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNELS = {
     "mf_solve": dict(
-        source="mf_solve.cu",
+        source=os.path.join(CSRC, "mf_solve.cu"),
         defines=(f"-DMF_MAX_NC={MF_MAX_NC}", f"-DMF_MAX_NV={MF_MAX_NV}"),
         symbols={"mf_solve_launch": [_P] * 9 + [_I] * 5 + [_P]},
     ),
@@ -50,20 +55,46 @@ def _nvcc() -> str:
   return path
 
 
-def _lib_path(name: str) -> str:
-  spec = KERNELS[name]
+def _digest(extra: bytes, defines) -> str:
+  """Hash of every source in csrc/, `extra`, the flags and the defines."""
   h = hashlib.sha256()
   for fn in sorted(os.listdir(CSRC)):
     if fn.endswith((".cu", ".cuh")):
       with open(os.path.join(CSRC, fn), "rb") as f:
         h.update(fn.encode() + f.read())
-  h.update(" ".join(FLAGS + spec["defines"]).encode())
-  return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+  h.update(extra)
+  h.update(" ".join(FLAGS + tuple(defines)).encode())
+  return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> str:
+  spec = KERNELS[name]
+  if spec.get("generated"):
+    return os.path.join(BUILD_DIR, f"{name}.so")
+  return os.path.join(BUILD_DIR, f"{name}-{_digest(b'', spec['defines'])}.so")
+
+
+def add_generated(stem: str, text: str, symbols: dict) -> str:
+  """Register a generated kernel source (compiled against csrc/'s headers)
+  and return its name, `stem`-<hash>. The source is written into `_build/`;
+  nothing is compiled until `build` or `load`."""
+  name = f"{stem}-{_digest(text.encode(), ())}"
+  if name not in KERNELS:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"{name}.cu")
+    if not os.path.exists(path):
+      tmp = f"{path}.{os.getpid()}.tmp"
+      with open(tmp, "w") as f:
+        f.write(text)
+      os.replace(tmp, path)
+    KERNELS[name] = dict(source=path, defines=(), symbols=symbols, generated=True)
+  return name
 
 
 def build(names=None) -> dict:
-  """Compile the named kernels (default: all) that are not built yet, one
-  nvcc process each, in parallel. Returns {name: seconds} for those built."""
+  """Compile the named kernels (default: all registered) that are not built
+  yet, one nvcc process each, in parallel. Returns {name: seconds} for those
+  built."""
   names = list(KERNELS) if names is None else list(names)
   todo = [n for n in names if not os.path.exists(_lib_path(n))]
   if not todo:
@@ -75,8 +106,8 @@ def build(names=None) -> dict:
   for n in todo:
     out = _lib_path(n)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *FLAGS, *KERNELS[n]["defines"], "-o", tmp,
-           os.path.join(CSRC, KERNELS[n]["source"])]
+    cmd = [nvcc, *FLAGS, *KERNELS[n]["defines"], "-I", CSRC, "-o", tmp,
+           KERNELS[n]["source"]]
     procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True), tmp, out)
   times, failed = {}, []
@@ -84,7 +115,7 @@ def build(names=None) -> dict:
     log, _ = p.communicate()
     build_logs[n] = log
     if p.returncode != 0:
-      failed.append(f"{n}:\n{log}")
+      failed.append(f"{n}:\n{log[:4000]}")
       continue
     os.replace(tmp, out)
     times[n] = time.perf_counter() - t0

@@ -21,6 +21,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from raisimlib_torch._device import resolve_device
+
 
 class JointType(enum.IntEnum):
   FREE = 0
@@ -86,11 +88,13 @@ class RobotModel:
 
 
 def build_model(name: str, bodies: Sequence[dict], dtype=torch.float32,
-                device="cpu") -> RobotModel:
+                device=None) -> RobotModel:
   """Assemble a RobotModel from per-body spec dicts (same format as the JAX
   package's build_model: parent, joint, axis, pos, rot, mass, com, inertia,
   name, actuated, torque_limit, q_lo, q_hi, q_init). Host-side math is numpy
-  float64; only the finished tables are converted."""
+  float64; only the finished tables are converted, onto `device` (None: the
+  card, see _device.resolve_device)."""
+  device = resolve_device(device)
   nb = len(bodies)
   parent, jtypes, names = [], [], []
   q_adr, v_adr = [], []

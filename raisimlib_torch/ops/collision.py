@@ -17,6 +17,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from raisimlib_torch._device import resolve_device
+
 GEOM_SPHERE = 0
 GEOM_BOX = 1
 GEOM_CAPSULE = 2
@@ -71,7 +73,10 @@ class GeomTable:
 
 
 def build_geom_table(specs: Sequence[GeomSpec], dtype=torch.float32,
-                     device="cpu") -> GeomTable:
+                     device=None) -> GeomTable:
+  """The numeric geom tables on `device` (None: the card, see
+  _device.resolve_device)."""
+  device = resolve_device(device)
   ng = len(specs)
   params = np.zeros((ng, 4))
   opos = np.zeros((ng, 3))

@@ -276,24 +276,30 @@ def solve_dynamics_batch(Jr, Wt, vf, bias, mu, active,
 solve_dynamics_batch.launches = 0
 
 
+def cone_solve_ops(n_grid: int = 32) -> int:
+  """Operations of one exact cone solve (csrc/cone_solve.cuh), every
+  arithmetic operation, comparison, select and transcendental counted as one:
+  a curve evaluation is 38 (sin, cos, 12 for G d, 5 each for d.Gd, d.c and E,
+  5 guards and selects, 2 for d), the grid adds 2 per point (theta, running
+  minimum), the refinements 10 evaluations and 2 selections, and stick,
+  parabola and final combination about 90. The solve does this work whatever
+  the case, so the count depends on n_grid only."""
+  curve = 38
+  return n_grid * (curve + 2) + 10 * (curve + 1) + 20 + curve + 90
+
+
 def mf_solve_cost(B: int, nc: int, nv: int, kinds: tuple, sweeps: int = 12,
                   n_grid: int = 32):
   """(bytes, operations) the solve needs at these shapes, for its bound.
 
-  Bytes: each float32 input read once, each output written once. Operations:
-  every arithmetic operation, comparison, select and transcendental counted
-  as one, per world: the hoisted dots, then per sweep and row the three (or
-  one, for lin) J.z dots and W updates, and for cone rows the full solve —
-  a curve evaluation is 38 operations (sin, cos, 12 for G d, 5 each for
-  d.Gd, d.c and E, 5 guards and selects, 2 for d), the grid adds 2 per point
-  (theta, running minimum), the refinements 10 evaluations and 2 selections,
-  and stick, parabola and final combination about 90. The kernel does this
-  work whatever the case, so the count depends on shapes and kinds only."""
+  Bytes: each float32 input read once, each output written once. Operations,
+  per world: the hoisted dots, then per sweep and row the three (or one, for
+  lin) J.z dots and W updates, and for cone rows the full solve
+  (`cone_solve_ops`)."""
   n_lin = sum(k == "lin" for k in kinds)
   n_bil = sum(k == "bilateral" for k in kinds)
   n_cone = nc - n_lin - n_bil
-  curve = 38
-  cone = n_grid * (curve + 2) + 10 * (curve + 1) + 20 + curve + 90
+  cone = cone_solve_ops(n_grid)
   full_row = 3 * 2 * nv + 15 + 3 * 2 * nv + 6          # J.z, c, W update
   per_world = ((n_cone + n_bil) * (9 * 2 * nv + 3) + n_lin * (2 * 2 * nv + 1)
                + sweeps * ((n_cone + n_bil) * full_row + n_cone * cone + n_bil * 40

@@ -1,0 +1,1390 @@
+"""Fused full physics step (K1): one CUDA kernel launch per step, and its twin.
+
+Counterpart of raisimlib_tpu/ops/pallas_step.py for its first scene class,
+K1a: FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; sphere centres, capsule
+endpoints and box corners against the ground plane (`plane_pt` slots); and
+joint-limit rows. Per world the step runs
+
+    A.   feedforward + implicit PD torque, clamped
+    B/C. forward kinematics and the RNEA bias h
+    D.   the CRBA mass matrix (+ dt kd on the diagonal) and its Cholesky factor
+    E.   contact rows (static frame t1 = +y, t2 = -x, n = +z) and limit rows
+    F.   triangular solves of [J^T | rhs0]: the rows of W = J M^-1 and v_free
+    G.   the hoisted 3x3 blocks Gii and c0 of each cone, and of each limit row
+    H.   Gauss-Seidel sweeps over the cones (exact cone solve), then the limits
+    I.   semi-implicit integration with the quaternion exp-map
+
+`_analyze` turns a Scene into static data on the host (numpy). The phases are
+written once, in the JAX emitter's scalar algebra: Python-float constants
+fold in float64 and structural zeros vanish, so only the operations that the
+model's structure needs are emitted. The algebra runs over a small value
+interface (`_Val`) with two back ends:
+
+  * `_TorchOps`: a per-world scalar is a (B,) tensor. This gives the plain
+    twin `_fused_plain`, which the tests, chip_smoke.py's comparison and CPU
+    tensors use. It follows the dtype of its inputs.
+  * `_CudaOps`: each operation prints one CUDA statement into a named
+    temporary. This gives the body of the kernel, which csrc/fused_step.cuh
+    frames (one world per thread) and `_build` compiles for sm_90a.
+
+The kernel and its twin therefore run the same sequence of operations, and
+both stay diffable phase by phase against the JAX emitter. A folded constant
+enters float32 arithmetic once, rounded (the kernel prints it already rounded
+to float32). Both back ends tally the operations they run per world, loop
+bodies times their trip counts; chip_smoke.py's bound for the kernel uses the
+kernel's tally.
+
+`make_step_batch_fused` is the public entry: CUDA tensors launch the kernel
+(or raise), CPU tensors run the twin, and gradients differentiate
+`pipeline.step_batch`, as the JAX package's custom VJP does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raisimlib_torch import _build
+from raisimlib_torch.models.model import JointType
+from raisimlib_torch.ops import collision as coll
+from raisimlib_torch.ops import constraints as cs
+from raisimlib_torch.ops import dynamics, gpu_contact, pipeline
+from raisimlib_torch.ops.integrator import State
+
+
+class FusedStepUnsupported(Exception):
+  """Scene outside the fused kernel's supported class; use the K2 path."""
+
+
+# ---------------------------------------------------------------------------
+# Scalar algebra: a "scalar" is a Python float (static) or a `_Val` (one
+# runtime value per world). Static zeros and ones fold away.
+# ---------------------------------------------------------------------------
+
+
+def _is_c(x) -> bool:
+  return isinstance(x, (int, float))
+
+
+def _mul(a, b):
+  if _is_c(a) and _is_c(b):
+    return float(a) * float(b)
+  if _is_c(a):
+    if a == 0.0:
+      return 0.0
+    if a == 1.0:
+      return b
+    if a == -1.0:
+      return -b
+    return a * b
+  if _is_c(b):
+    return _mul(b, a)
+  return a * b
+
+
+def _add2(a, b):
+  if _is_c(a):
+    if a == 0.0:
+      return b
+    if _is_c(b):
+      return float(a) + float(b)
+  if _is_c(b) and b == 0.0:
+    return a
+  return a + b
+
+
+def _add(*xs):
+  out = 0.0
+  for x in xs:
+    out = _add2(out, x)
+  return out
+
+
+def _neg(a):
+  return -float(a) if _is_c(a) else -a
+
+
+def _sub(a, b):
+  return _add2(a, _neg(b))
+
+
+def _dot(u, v):
+  return _add(*[_mul(a, b) for a, b in zip(u, v)])
+
+
+def _vadd(u, v):
+  return tuple(_add2(a, b) for a, b in zip(u, v))
+
+
+def _vsub(u, v):
+  return tuple(_sub(a, b) for a, b in zip(u, v))
+
+
+def _vscale(s, u):
+  return tuple(_mul(s, a) for a in u)
+
+
+def _cross(u, v):
+  return (
+      _sub(_mul(u[1], v[2]), _mul(u[2], v[1])),
+      _sub(_mul(u[2], v[0]), _mul(u[0], v[2])),
+      _sub(_mul(u[0], v[1]), _mul(u[1], v[0])),
+  )
+
+
+def _mv(M, v):
+  """3x3 @ 3."""
+  return tuple(_dot(row, v) for row in M)
+
+
+def _mTv(M, v):
+  """3x3 transpose @ 3."""
+  return tuple(_dot((M[0][j], M[1][j], M[2][j]), v) for j in range(3))
+
+
+def _mm(A, B):
+  """3x3 @ 3x3."""
+  return tuple(
+      tuple(_dot(A[i], tuple(B[k][j] for k in range(3))) for j in range(3))
+      for i in range(3))
+
+
+def _mT(A):
+  return tuple(tuple(A[j][i] for j in range(3)) for i in range(3))
+
+
+def _m_add(A, B):
+  return tuple(tuple(_add2(a, b) for a, b in zip(ra, rb))
+               for ra, rb in zip(A, B))
+
+
+def _skew(v):
+  return ((0.0, _neg(v[2]), v[1]),
+          (v[2], 0.0, _neg(v[0])),
+          (_neg(v[1]), v[0], 0.0))
+
+
+_Z3 = ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+_I3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+
+
+def _np_m(M):
+  return tuple(tuple(float(x) for x in row) for row in np.asarray(M))
+
+
+def _np_v(v):
+  return tuple(float(x) for x in np.asarray(v))
+
+
+# 6-vectors as (vec3, vec3) pairs; 6x6 as (A, B, C, D) 3x3 blocks.
+
+
+def _xf_motion(E, r, wv):
+  """Motion vector A-coords -> B-coords for X = (E, r)."""
+  w, v = wv
+  return (_mv(E, w), _mv(E, _vsub(v, _cross(r, w))))
+
+
+def _xf_motion_inv(E, r, wv):
+  """Motion vector B-coords -> A-coords."""
+  w, v = wv
+  wp = _mTv(E, w)
+  return (wp, _vadd(_mTv(E, v), _cross(r, wp)))
+
+
+def _xf_force_inv(E, r, nf):
+  """Force vector B-coords -> A-coords."""
+  n, f = nf
+  fp = _mTv(E, f)
+  return (_vadd(_mTv(E, n), _cross(r, fp)), fp)
+
+
+def _cross_motion(v, m):
+  w, vl = v
+  mw, ml = m
+  return (_cross(w, mw), _vadd(_cross(w, ml), _cross(vl, mw)))
+
+
+def _cross_force(v, f):
+  w, vl = v
+  n, fl = f
+  return (_vadd(_cross(w, n), _cross(vl, fl)), _cross(w, fl))
+
+
+def _I_mul(I4, wv):
+  """6x6 (A,B,C,D blocks) @ motion (w, v)."""
+  A, B, C, D = I4
+  w, v = wv
+  return (_vadd(_mv(A, w), _mv(B, v)), _vadd(_mv(C, w), _mv(D, v)))
+
+
+def _vadd6(*wvs):
+  w = (0.0, 0.0, 0.0)
+  v = (0.0, 0.0, 0.0)
+  for ww, vv in wvs:
+    w = _vadd(w, ww)
+    v = _vadd(v, vv)
+  return (w, v)
+
+
+def _b_mm(X, Y):
+  """6x6 block matmul: (A,B,C,D) @ (A,B,C,D)."""
+  XA, XB, XC, XD = X
+  YA, YB, YC, YD = Y
+  return (_m_add(_mm(XA, YA), _mm(XB, YC)), _m_add(_mm(XA, YB), _mm(XB, YD)),
+          _m_add(_mm(XC, YA), _mm(XD, YC)), _m_add(_mm(XC, YB), _mm(XD, YD)))
+
+
+def _b_T(X):
+  A, B, C, D = X
+  return (_mT(A), _mT(C), _mT(B), _mT(D))
+
+
+def _b_add(X, Y):
+  return tuple(_m_add(a, b) for a, b in zip(X, Y))
+
+
+def _quat_to_mat(qw, qx, qy, qz):
+  xx, yy, zz = _mul(qx, qx), _mul(qy, qy), _mul(qz, qz)
+  xy, xz, yz = _mul(qx, qy), _mul(qx, qz), _mul(qy, qz)
+  wx, wy, wz = _mul(qw, qx), _mul(qw, qy), _mul(qw, qz)
+  return (
+      (_sub(1.0, _mul(2.0, _add2(yy, zz))), _mul(2.0, _sub(xy, wz)),
+       _mul(2.0, _add2(xz, wy))),
+      (_mul(2.0, _add2(xy, wz)), _sub(1.0, _mul(2.0, _add2(xx, zz))),
+       _mul(2.0, _sub(yz, wx))),
+      (_mul(2.0, _sub(xz, wy)), _mul(2.0, _add2(yz, wx)),
+       _sub(1.0, _mul(2.0, _add2(xx, yy)))),
+  )
+
+
+def _rodrigues(axis, c, s):
+  """R = I + s K + (1-c) K^2 for a STATIC unit axis; c, s runtime."""
+  K = _skew(axis)
+  KK = _mm(K, K)
+  one_c = _sub(1.0, c)
+  return tuple(
+      tuple(_add(_I3[i][j], _mul(s, K[i][j]), _mul(one_c, KK[i][j]))
+            for j in range(3)) for i in range(3))
+
+
+# ---------------------------------------------------------------------------
+# Static scene analysis
+# ---------------------------------------------------------------------------
+
+
+class _Slot(NamedTuple):
+  """One contact slot. K1a has one kind, "plane_pt": a feature point (body_a
+  frame, static `local`) + sphere radius against the static plane
+  z = plane_h (sphere centres, capsule endpoints, box corners), with the
+  static contact frame t1 = +y, t2 = -x, n = +z."""
+
+  kind: str
+  body_a: int
+  local: tuple
+  radius: float
+  plane_h: float
+  mu: float
+  e: float
+  thresh: float
+
+
+class _Limit(NamedTuple):
+  vadr: int
+  qadr: int
+  lo: float
+  hi: float
+
+
+class _StaticData(NamedTuple):
+  """Everything the kernel needs, concretized to Python/numpy at build time."""
+
+  # model
+  nb: int
+  nq: int
+  nv: int
+  parent: tuple
+  joint_types: tuple
+  q_adr: tuple
+  v_adr: tuple
+  axis: tuple           # per body, static 3-tuple
+  X_rotT: tuple         # per body, static 3x3 (transpose of parent->joint rot)
+  X_rot: tuple
+  X_pos: tuple
+  I6: tuple             # per body, (A, B, C, D) static 3x3 blocks
+  anc_dofs: tuple       # per body, tuple of ancestor dof indices
+  # actuation
+  actuated: tuple
+  torque_limit: tuple
+  kp: tuple
+  kd: tuple
+  jidx: tuple           # dof -> qpos index for 1-dof joints
+  jmask: tuple
+  use_pd: bool
+  # physics
+  dt: float
+  gravity: tuple
+  erp: float
+  slop: float
+  max_corr: float
+  sweeps: int
+  n_grid: int
+  # rows
+  slots: tuple          # of _Slot
+  limits: tuple         # of _Limit
+  n_wrows: int          # solver rows needing W (3 * ncone + nlim)
+
+
+def _host(x) -> np.ndarray:
+  return x.detach().cpu().double().numpy()
+
+
+_UNSUPPORTED_PAIR = ("runtime-frame pairs (K1b) are not ported to the fused "
+                     "kernel: ROADMAP.md item 10")
+_UNSUPPORTED_HM = ("heightmap slots (K1c) are not ported to the fused kernel: "
+                   "ROADMAP.md item 11")
+
+
+def _analyze(scene, config, use_pd: bool) -> _StaticData:
+  """Concretize the scene to static kernel data; raise FusedStepUnsupported
+  for anything outside the kernel's scene class (K1a)."""
+  model = scene.model
+  for jt in model.joint_types:
+    if JointType(jt) not in (JointType.FREE, JointType.REVOLUTE,
+                             JointType.PRISMATIC, JointType.SPHERICAL):
+      raise FusedStepUnsupported(f"joint type {JointType(jt)!r}")
+  tabs = scene.constraints or cs.EMPTY
+  if tabs.wires or tabs.pins or tabs.compliant:
+    raise FusedStepUnsupported("wires, pins and compliant wires are not ported: "
+                               "ROADMAP.md item 13")
+  geoms = scene.geoms
+  mats = _host(scene.materials)
+  params = _host(geoms.params)
+  opos = _host(geoms.offset_pos)
+  orot = _host(geoms.offset_rot)
+
+  slots = []
+  for ia, ib in scene.pairs:
+    ta, tb = geoms.gtype[ia], geoms.gtype[ib]
+    names = (coll.GEOM_NAMES.get(ta, ta), coll.GEOM_NAMES.get(tb, tb))
+    if coll.GEOM_HEIGHTMAP in (ta, tb):
+      raise FusedStepUnsupported(_UNSUPPORTED_HM)
+    if tb != coll.GEOM_PLANE:
+      raise FusedStepUnsupported(f"pair {names}: {_UNSUPPORTED_PAIR}")
+    ba = geoms.body[ia]
+    if ba < 0:
+      raise FusedStepUnsupported("static non-plane geom vs plane")
+    mu, e, th = (float(x) for x in mats[geoms.material[ia], geoms.material[ib]])
+    pa, oa, ra_ = params[ia], opos[ia], orot[ia]
+    h = float(params[ib, 0])
+
+    def plane_pt(local, radius):
+      slots.append(_Slot("plane_pt", ba, _np_v(local), float(radius), h, mu, e, th))
+
+    if ta == coll.GEOM_SPHERE:
+      plane_pt(oa, pa[0])
+    elif ta == coll.GEOM_CAPSULE:
+      # two endpoint spheres at static body-local points, as
+      # collision._capsule_plane's two slots
+      r_, hl = float(pa[0]), float(pa[1])
+      for s_ in (-1.0, 1.0):
+        plane_pt(oa + ra_ @ np.array([0.0, 0.0, s_ * hl]), r_)
+    elif ta == coll.GEOM_BOX:
+      he = pa[:3]
+      for sx in (-1.0, 1.0):
+        for sy in (-1.0, 1.0):
+          for sz in (-1.0, 1.0):
+            plane_pt(oa + ra_ @ (he * np.array([sx, sy, sz])), 0.0)
+    else:
+      raise FusedStepUnsupported(f"geom type {names[0]} vs plane")
+
+  limits = tuple(
+      _Limit(int(v), int(q), float(lo), float(hi))
+      for v, q, lo, hi in zip(tabs.limit_vadr, tabs.limit_qadr,
+                              tabs.limit_lo, tabs.limit_hi))
+
+  if use_pd and scene.kp is None:
+    raise FusedStepUnsupported("use_pd=True but scene has no PD gains")
+
+  amask = dynamics.ancestor_dof_mask(model)
+  anc = tuple(tuple(int(j) for j in np.nonzero(amask[b])[0])
+              for b in range(model.nb))
+  jidx, jmask = pipeline._joint_pos_index(model)
+
+  inr = _host(model.inertia)
+  I6 = tuple((_np_m(inr[b, :3, :3]), _np_m(inr[b, :3, 3:]),
+              _np_m(inr[b, 3:, :3]), _np_m(inr[b, 3:, 3:]))
+             for b in range(model.nb))
+  kp = _host(scene.kp) if scene.kp is not None else np.zeros(model.nv)
+  kd = _host(scene.kd) if scene.kd is not None else np.zeros(model.nv)
+  X_rot, X_pos, axis = _host(model.X_rot), _host(model.X_pos), _host(model.axis)
+
+  return _StaticData(
+      nb=model.nb, nq=model.nq, nv=model.nv,
+      parent=tuple(model.parent),
+      joint_types=tuple(JointType(j) for j in model.joint_types),
+      q_adr=tuple(model.q_adr), v_adr=tuple(model.v_adr),
+      axis=tuple(_np_v(axis[b]) for b in range(model.nb)),
+      X_rotT=tuple(_np_m(X_rot[b].T) for b in range(model.nb)),
+      X_rot=tuple(_np_m(X_rot[b]) for b in range(model.nb)),
+      X_pos=tuple(_np_v(X_pos[b]) for b in range(model.nb)),
+      I6=I6, anc_dofs=anc,
+      actuated=_np_v(_host(model.actuated)),
+      torque_limit=_np_v(_host(model.torque_limit)),
+      kp=_np_v(kp), kd=_np_v(kd),
+      jidx=tuple(int(x) for x in jidx), jmask=_np_v(jmask),
+      use_pd=use_pd,
+      dt=float(scene.dt), gravity=_np_v(_host(scene.gravity)),
+      erp=float(config.erp), slop=float(config.slop),
+      max_corr=float(config.max_correction_vel),
+      sweeps=int(config.solver.sweeps), n_grid=int(config.solver.n_grid),
+      slots=tuple(slots), limits=limits,
+      n_wrows=3 * len(slots) + len(limits))
+
+
+# ---------------------------------------------------------------------------
+# Runtime values and the two back ends
+# ---------------------------------------------------------------------------
+
+_BOOL_OPS = (">", "<", "||")
+
+
+class _Val:
+  """One runtime scalar per world: a tensor in the twin, the name of a CUDA
+  temporary in the kernel source. Arithmetic goes to the back end `k`."""
+
+  __slots__ = ("k", "x")
+
+  def __init__(self, k, x):
+    self.k, self.x = k, x
+
+  def __add__(self, o):
+    return self.k.bin("+", self, o)
+
+  def __radd__(self, o):
+    return self.k.bin("+", o, self)
+
+  def __sub__(self, o):
+    return self.k.bin("-", self, o)
+
+  def __rsub__(self, o):
+    return self.k.bin("-", o, self)
+
+  def __mul__(self, o):
+    return self.k.bin("*", self, o)
+
+  def __rmul__(self, o):
+    return self.k.bin("*", o, self)
+
+  def __truediv__(self, o):
+    return self.k.bin("/", self, o)
+
+  def __rtruediv__(self, o):
+    return self.k.bin("/", o, self)
+
+  def __neg__(self):
+    return self.k.neg(self)
+
+  def __gt__(self, o):
+    return self.k.bin(">", self, o)
+
+  def __lt__(self, o):
+    return self.k.bin("<", self, o)
+
+  def __or__(self, o):
+    return self.k.bin("||", self, o)
+
+
+class _TorchOps:
+  """The twin's back end: a value is a (B,) tensor, or a (B, n) slab of n
+  right-hand columns (phase F) or n dofs (the z update of phase H). `ops`
+  counts operations per world: a slab operation counts n."""
+
+  def __init__(self, B: int, dtype, device):
+    self.B, self.dtype, self.device = B, dtype, device
+    self.ops = 0
+
+  def t(self, v):
+    """The tensor behind a value; a constant becomes a (B,) tensor."""
+    if isinstance(v, _Val):
+      return v.x
+    return torch.full((self.B,), float(v), dtype=self.dtype, device=self.device)
+
+  def _out(self, r):
+    self.ops += r.shape[1] if r.ndim == 2 else 1
+    return _Val(self, r)
+
+  def bin(self, op, a, b):
+    xa = a.x if isinstance(a, _Val) else float(a)
+    xb = b.x if isinstance(b, _Val) else float(b)
+    if torch.is_tensor(xa) and torch.is_tensor(xb) and xa.ndim != xb.ndim:
+      if xa.ndim < xb.ndim:
+        xa = xa[:, None]
+      else:
+        xb = xb[:, None]
+    if op == "/":
+      # tensor by tensor: PyTorch divides by a Python scalar as a product
+      # with its reciprocal on the card, which is not IEEE division
+      if not torch.is_tensor(xa):
+        xa = torch.full_like(xb, xa)
+      if not torch.is_tensor(xb):
+        xb = torch.full_like(xa, xb)
+      r = xa / xb
+    elif op == "+":
+      r = xa + xb
+    elif op == "-":
+      r = xa - xb
+    elif op == "*":
+      r = xa * xb
+    elif op == ">":
+      r = xa > xb
+    elif op == "<":
+      r = xa < xb
+    else:
+      r = xa | xb
+    return self._out(r)
+
+  def neg(self, a):
+    return self._out(-a.x)
+
+  def sqrt(self, a):
+    return self._out(torch.sqrt(self.t(a)))
+
+  def rsqrt(self, a):
+    return self._out(torch.rsqrt(self.t(a)))
+
+  def sin(self, a):
+    return self._out(torch.sin(self.t(a)))
+
+  def cos(self, a):
+    return self._out(torch.cos(self.t(a)))
+
+  def maximum(self, a, b):
+    if _is_c(a):
+      a, b = b, a
+    if _is_c(b):
+      return self._out(torch.clamp(a.x, min=float(b)))
+    return self._out(torch.maximum(a.x, b.x))
+
+  def minimum(self, a, b):
+    if _is_c(a):
+      a, b = b, a
+    if _is_c(b):
+      return self._out(torch.clamp(a.x, max=float(b)))
+    return self._out(torch.minimum(a.x, b.x))
+
+  def where(self, c, a, b):
+    return self._out(torch.where(c.x, self.t(a), self.t(b)))
+
+  def to_float(self, c):
+    return self._out(c.x.to(self.dtype))
+
+  def cells(self, name, n):
+    return _TorchCells(self, n)
+
+  def repeat(self, n, body):
+    for _ in range(n):
+      body()
+
+  def pack(self, name, vals):
+    return tuple(self.t(v) for v in vals)
+
+  def cone_solve(self, g, c, mu: float, n_grid: int):
+    ln = gpu_contact._cone_solve_grid(g, tuple(self.t(x) for x in c),
+                                      self.t(mu), n_grid)
+    self.ops += gpu_contact.cone_solve_ops(n_grid)
+    return [_Val(self, x) for x in ln]
+
+  def solve_columns(self, Jrows, rhs0, L, invd):
+    """Phase F on (B, ncol) slabs, one per dof: columns 0..nw-1 hold J^T,
+    column nw the rhs0 vector. Returns (W, vf column)."""
+    nv, nw = len(rhs0), len(Jrows)
+    cols = [torch.zeros((self.B, nw + 1), dtype=self.dtype, device=self.device)
+            for _ in range(nv)]
+    for row in range(nw):
+      for j, val in Jrows[row].items():
+        cols[j][:, row] = self.t(val)
+    for j in range(nv):
+      cols[j][:, nw] = self.t(rhs0[j])
+    x = [_Val(self, c) for c in cols]
+    _tri_solve(x, L, invd)
+    X = torch.stack([v.x for v in x], -1)             # (B, nw + 1, nv)
+    return _TorchRows(self, X[:, :nw]), [_Val(self, X[:, nw, j]) for j in range(nv)]
+
+  def axpy(self, z, W, rows, ds):
+    """z += sum_a W[rows[a]] * ds[a], elementwise over the dofs, in the
+    order (W0 d0 + W1 d1) + W2 d2, then z + that."""
+    acc = self._out(W.X[:, rows[0]] * self.t(ds[0])[:, None]).x
+    for r, d in zip(rows[1:], ds[1:]):
+      prod = self._out(W.X[:, r] * self.t(d)[:, None]).x
+      acc = self._out(acc + prod).x
+    zs = self._out(torch.stack(z.vals, 1) + acc).x
+    z.vals = list(zs.unbind(1))
+
+
+class _TorchCells:
+  """Mutable per-world scalars (z, lambda) of the twin."""
+
+  def __init__(self, k, n):
+    self.k = k
+    self.vals = [k.t(0.0) for _ in range(n)]
+
+  def get(self, i):
+    return _Val(self.k, self.vals[i])
+
+  def set(self, i, v):
+    self.vals[i] = self.k.t(v)
+
+
+class _TorchRows:
+  """The rows of W = J M^-1 in the twin: X (B, nw, nv)."""
+
+  def __init__(self, k, X):
+    self.k, self.X = k, X
+
+  def elem(self, row, j):
+    return _Val(self.k, self.X[:, row, j])
+
+
+def _lit(c) -> str:
+  """A float32 literal: the constant rounded to float32 once, printed with
+  enough digits to read back exactly."""
+  f = float(np.float32(c))
+  if not math.isfinite(f):
+    raise ValueError(f"constant {c} is not finite in float32")
+  return f"{f:.9e}f"
+
+
+class _CudaOps:
+  """The kernel's back end: each operation prints one statement into a new
+  temporary. `ops` counts operations per world, a loop body times its trip
+  count."""
+
+  _FN = {"sqrt": "sqrtf", "rsqrt": "rsqrtf", "sin": "sinf", "cos": "cosf",
+         "maximum": "fmaxf", "minimum": "fminf"}
+
+  def __init__(self):
+    self.lines = []
+    self.n = 0
+    self.ops = 0
+    self.mult = 1
+    self.depth = 1
+
+  def emit(self, line: str):
+    self.lines.append("  " * self.depth + line)
+
+  def e(self, v) -> str:
+    return v.x if isinstance(v, _Val) else _lit(v)
+
+  def _def(self, ctype, expr, count=True):
+    name = f"t{self.n}"
+    self.n += 1
+    self.emit(f"{ctype} {name} = {expr};")
+    if count:
+      self.ops += self.mult
+    return _Val(self, name)
+
+  def bin(self, op, a, b):
+    ctype = "bool" if op in _BOOL_OPS else "float"
+    return self._def(ctype, f"{self.e(a)} {op} {self.e(b)}")
+
+  def neg(self, a):
+    return self._def("float", f"-{self.e(a)}")
+
+  def _fn(self, name, *args):
+    return self._def("float", f"{self._FN[name]}({', '.join(self.e(a) for a in args)})")
+
+  def sqrt(self, a):
+    return self._fn("sqrt", a)
+
+  def rsqrt(self, a):
+    return self._fn("rsqrt", a)
+
+  def sin(self, a):
+    return self._fn("sin", a)
+
+  def cos(self, a):
+    return self._fn("cos", a)
+
+  def maximum(self, a, b):
+    return self._fn("maximum", a, b)
+
+  def minimum(self, a, b):
+    return self._fn("minimum", a, b)
+
+  def where(self, c, a, b):
+    return self._def("float", f"{self.e(c)} ? {self.e(a)} : {self.e(b)}")
+
+  def to_float(self, c):
+    return self._def("float", f"{self.e(c)} ? 1.0f : 0.0f")
+
+  def cells(self, name, n):
+    self.emit(f"float {name}[{n}];")
+    self.emit(f"for (int k = 0; k < {n}; ++k) {name}[k] = 0.0f;")
+    return _CudaCells(self, name)
+
+  def _loop(self, var, n):
+    self.emit("#pragma unroll 1")
+    self.emit(f"for (int {var} = 0; {var} < {n}; ++{var}) {{")
+    self.depth += 1
+    self.mult *= n
+
+  def _end_loop(self, n):
+    self.mult //= n
+    self.depth -= 1
+    self.emit("}")
+
+  def repeat(self, n, body):
+    self._loop("sweep", n)
+    body()
+    self._end_loop(n)
+
+  def pack(self, name, vals):
+    self.emit(f"const float {name}[{len(vals)}] = {{{', '.join(self.e(v) for v in vals)}}};")
+    return name
+
+  def cone_solve(self, g, c, mu: float, n_grid: int):
+    name = f"ln{self.n}"
+    self.n += 1
+    self.emit(f"float {name}[3];")
+    self.emit(f"rsl::cone_solve({g}, {', '.join(self.e(x) for x in c)}, {_lit(mu)}, "
+              f"cc, {name});")
+    self.ops += self.mult * gpu_contact.cone_solve_ops(n_grid)
+    return [_Val(self, f"{name}[{a}]") for a in range(3)]
+
+  def solve_columns(self, Jrows, rhs0, L, invd):
+    """Phase F as a loop over the nw + 1 right-hand columns of a per-thread
+    array jt (column c at jt[c * nv], J^T columns then rhs0); each column's
+    nv entries are solved in registers. Returns (W, vf column)."""
+    nv, nw = len(rhs0), len(Jrows)
+    ncol = nw + 1
+    self.emit(f"float jt[{ncol * nv}];")
+    self.emit(f"for (int k = 0; k < {ncol * nv}; ++k) jt[k] = 0.0f;")
+    for row in range(nw):
+      for j, val in Jrows[row].items():
+        self.emit(f"jt[{row * nv + j}] = {self.e(val)};")
+    for j in range(nv):
+      self.emit(f"jt[{nw * nv + j}] = {self.e(rhs0[j])};")
+    self._loop("c", ncol)
+    self.emit(f"float* col = jt + c * {nv};")
+    x = [_Val(self, f"col[{i}]") for i in range(nv)]
+    _tri_solve(x, L, invd)
+    for i in range(nv):
+      self.emit(f"col[{i}] = {self.e(x[i])};")
+    self._end_loop(ncol)
+    return _CudaRows(self, nv), [_Val(self, f"jt[{nw * nv + j}]") for j in range(nv)]
+
+  def axpy(self, z, W, rows, ds):
+    for k in range(W.nv):
+      acc = W.elem(rows[0], k) * ds[0]
+      for r, d in zip(rows[1:], ds[1:]):
+        acc = acc + W.elem(r, k) * d
+      z.set(k, z.get(k) + acc)
+
+
+class _CudaCells:
+  """Mutable per-thread array (z, lambda). `get` copies the current value
+  into a temporary, so that a later `set` does not change what was read."""
+
+  def __init__(self, k, name):
+    self.k, self.name = k, name
+
+  def get(self, i):
+    return self.k._def("float", f"{self.name}[{i}]", count=False)
+
+  def set(self, i, v):
+    self.k.emit(f"{self.name}[{i}] = {self.k.e(v)};")
+
+
+class _CudaRows:
+  """The rows of W = J M^-1 in the kernel: row r, dof j at jt[r * nv + j]."""
+
+  def __init__(self, k, nv):
+    self.k, self.nv = k, nv
+
+  def elem(self, row, j):
+    return _Val(self.k, f"jt[{row * self.nv + j}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase emitters (K is the back end)
+# ---------------------------------------------------------------------------
+
+
+def _emit_fk_rnea(sd: _StaticData, K, q, u):
+  """FK + RNEA bias. Returns (E0, r0, Rquat, Sw, h, EupL, rupL, Sbody): E0/r0
+  per-body world->body transforms, Rquat the FREE/SPHERICAL bodies' raw
+  quaternion rotations (for integration), Sw per-dof world subspace rows, h
+  the (nv,) bias torque list."""
+  nb, nv = sd.nb, sd.nv
+  E0 = [None] * nb
+  r0 = [None] * nb
+  EupL = [None] * nb
+  rupL = [None] * nb
+  Rquat = {}
+  Sbody = [None] * nb       # list of per-dof body-frame (w, v) rows
+  Sw = [None] * nv
+  vbody = [None] * nb
+  vJs = [None] * nb
+  cJs = [None] * nb
+
+  for i in range(nb):
+    jt = sd.joint_types[i]
+    qa, va = sd.q_adr[i], sd.v_adr[i]
+    XrT, Xr, Xp = sd.X_rotT[i], sd.X_rot[i], sd.X_pos[i]
+    if jt == JointType.FREE:
+      quat = (q[qa + 3], q[qa + 4], q[qa + 5], q[qa + 6])
+      pos = (q[qa], q[qa + 1], q[qa + 2])
+      R = _quat_to_mat(*quat)
+      Rquat[i] = (quat, R)
+      EJ = _mT(R)
+      rJ = pos
+      # S rows: ang k -> (e_k, 0); lin k -> (0, R[k, :])
+      Srows = [((_I3[k]), (0.0, 0.0, 0.0)) for k in range(3)]
+      Srows += [((0.0, 0.0, 0.0), tuple(R[k])) for k in range(3)]
+      w_b = (u[va], u[va + 1], u[va + 2])
+      v_b = _mTv(R, (u[va + 3], u[va + 4], u[va + 5]))
+      vJ = (w_b, v_b)
+      cJ = ((0.0, 0.0, 0.0), _vscale(-1.0, _cross(w_b, v_b)))
+    elif jt == JointType.SPHERICAL:
+      # ball joint: q = quat wxyz, u = omega in child body coords; constant
+      # S = [I3 | 0], cJ = 0
+      quat = (q[qa], q[qa + 1], q[qa + 2], q[qa + 3])
+      R = _quat_to_mat(*quat)
+      Rquat[i] = (quat, R)
+      EJ = _mT(R)
+      rJ = (0.0, 0.0, 0.0)
+      Srows = [((_I3[k]), (0.0, 0.0, 0.0)) for k in range(3)]
+      vJ = ((u[va], u[va + 1], u[va + 2]), (0.0, 0.0, 0.0))
+      cJ = ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    elif jt == JointType.REVOLUTE:
+      th = q[qa]
+      RJ = _rodrigues(sd.axis[i], K.cos(th), K.sin(th))
+      EJ = _mT(RJ)
+      rJ = (0.0, 0.0, 0.0)
+      Srows = [(sd.axis[i], (0.0, 0.0, 0.0))]
+      vJ = (_vscale(u[va], sd.axis[i]), (0.0, 0.0, 0.0))
+      cJ = ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    else:  # PRISMATIC
+      d = q[qa]
+      EJ = _I3
+      rJ = _vscale(d, sd.axis[i])
+      Srows = [((0.0, 0.0, 0.0), sd.axis[i])]
+      vJ = ((0.0, 0.0, 0.0), _vscale(u[va], sd.axis[i]))
+      cJ = ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+    # Xup = compose(X_J, X_tree): E = EJ @ Xr^T; r = Xp + Xr @ rJ
+    Eup = _mm(EJ, XrT)
+    rup = _vadd(Xp, _mv(Xr, rJ))
+    EupL[i], rupL[i] = Eup, rup
+    Sbody[i] = Srows
+    vJs[i], cJs[i] = vJ, cJ
+    p = sd.parent[i]
+    if p < 0:
+      E0[i], r0[i] = Eup, rup
+      vbody[i] = vJ
+    else:
+      E0[i] = _mm(Eup, E0[p])
+      r0[i] = _vadd(r0[p], _mTv(E0[p], rup))
+      vbody[i] = _vadd6(_xf_motion(Eup, rup, vbody[p]), vJ)
+    for k, srow in enumerate(Srows):
+      Sw[va + k] = _xf_motion_inv(E0[i], r0[i], srow)
+
+  # RNEA with qdd = 0: bias h
+  g = sd.gravity
+  a_base = ((0.0, 0.0, 0.0), (-g[0], -g[1], -g[2]))
+  a = [None] * nb
+  f = [None] * nb
+  for i in range(nb):
+    p = sd.parent[i]
+    ap = a_base if p < 0 else a[p]
+    a[i] = _vadd6(_xf_motion(EupL[i], rupL[i], ap), cJs[i],
+                  _cross_motion(vbody[i], vJs[i]))
+    Iv = _I_mul(sd.I6[i], vbody[i])
+    f[i] = _vadd6(_I_mul(sd.I6[i], a[i]), _cross_force(vbody[i], Iv))
+
+  h = [0.0] * nv
+  for i in reversed(range(nb)):
+    va = sd.v_adr[i]
+    fn, fl = f[i]
+    for k, (sw, sv) in enumerate(Sbody[i]):
+      h[va + k] = _add2(_dot(sw, fn), _dot(sv, fl))
+    p = sd.parent[i]
+    if p >= 0:
+      f[p] = _vadd6(f[p], _xf_force_inv(EupL[i], rupL[i], f[i]))
+
+  return E0, r0, Rquat, Sw, h, EupL, rupL, Sbody
+
+
+def _emit_crba(sd: _StaticData, EupL, rupL, Sbody, D_diag):
+  """Composite-rigid-body mass matrix (+ implicit-PD dt*diag(D)) as a dense
+  Python matrix of scalars (static zeros elided)."""
+  nb, nv = sd.nb, sd.nv
+  Ic = [sd.I6[i] for i in range(nb)]
+  M = [[0.0] * nv for _ in range(nv)]
+
+  def set_sym(i, j, val):
+    M[i][j] = val
+    if i != j:
+      M[j][i] = val
+
+  for i in reversed(range(nb)):
+    p = sd.parent[i]
+    if p >= 0:
+      E, r = EupL[i], rupL[i]
+      # Xm = [[E, 0], [-E r~, E]] (motion transform of Xup); congruence
+      # Xm^T Ic Xm accumulates the child composite into the parent
+      nEr = tuple(tuple(_neg(x) for x in row) for row in _mm(E, _skew(r)))
+      Xm = (E, _Z3, nEr, E)
+      Ic[p] = _b_add(Ic[p], _b_mm(_b_T(Xm), _b_mm(Ic[i], Xm)))
+    va = sd.v_adr[i]
+    nd = len(Sbody[i])
+    # F_k = Ic_i @ S_k ; diag block M[va+k, va+l] = S_l . F_k
+    Fs = [_I_mul(Ic[i], Sbody[i][k]) for k in range(nd)]
+    for k in range(nd):
+      for l in range(k, nd):
+        sw, sv = Sbody[i][l]
+        set_sym(va + k, va + l, _add2(_dot(sw, Fs[k][0]), _dot(sv, Fs[k][1])))
+    # walk ancestors: F <- Xm^T F; off-diag blocks
+    for k in range(nd):
+      Fc = Fs[k]
+      j = i
+      while sd.parent[j] >= 0:
+        Fc = _xf_force_inv(EupL[j], rupL[j], Fc)
+        j = sd.parent[j]
+        vb = sd.v_adr[j]
+        for l, (sw, sv) in enumerate(Sbody[j]):
+          set_sym(va + k, vb + l, _add2(_dot(sw, Fc[0]), _dot(sv, Fc[1])))
+
+  for j in range(nv):
+    if not (_is_c(D_diag[j]) and D_diag[j] == 0.0):
+      M[j][j] = _add2(M[j][j], _mul(sd.dt, D_diag[j]))
+  return M
+
+
+def _emit_chol(K, nv: int, M):
+  """Dense lower Cholesky over scalar entries; returns (L, invdiag)."""
+  L = [[0.0] * nv for _ in range(nv)]
+  invd = [None] * nv
+  for k in range(nv):
+    acc = M[k][k]
+    for j in range(k):
+      acc = _sub(acc, _mul(L[k][j], L[k][j]))
+    dk = K.sqrt(acc)
+    L[k][k] = dk
+    invd[k] = 1.0 / dk
+    for i in range(k + 1, nv):
+      s = M[i][k]
+      for j in range(k):
+        s = _sub(s, _mul(L[i][j], L[k][j]))
+      L[i][k] = _mul(invd[k], s)
+  return L, invd
+
+
+def _tri_solve(x, L, invd):
+  """Phase F's substitutions, in place on the values x (one per dof):
+  forward L y = x, then backward L^T x = y, multiplying by invd."""
+  nv = len(x)
+  for i in range(nv):
+    acc = x[i]
+    for j in range(i):
+      if not (_is_c(L[i][j]) and L[i][j] == 0.0):
+        acc = acc - x[j] * L[i][j]
+    x[i] = acc * invd[i]
+  for i in reversed(range(nv)):
+    acc = x[i]
+    for j in range(i + 1, nv):
+      if not (_is_c(L[j][i]) and L[j][i] == 0.0):
+        acc = acc - x[j] * L[j][i]
+    x[i] = acc * invd[i]
+
+
+def _emit_step(sd: _StaticData, K, q, u, tau_in, pd_in):
+  """Phases A-I for one world, on the values q (nq), u, tau_in, pd_in (nv;
+  pd_in None without PD). Returns the lists (q', u')."""
+  nv, nb = sd.nv, sd.nb
+  dt = sd.dt
+
+  # ---- A. actuation: feedforward + implicit PD, clamp ----
+  tau = [0.0] * nv
+  D_diag = [0.0] * nv
+  for j in range(nv):
+    t = _mul(sd.actuated[j], tau_in[j])
+    if sd.use_pd:
+      if sd.actuated[j] != 0.0 and sd.jmask[j] != 0.0:
+        t = _add2(t, _mul(sd.kp[j] * sd.actuated[j],
+                          _sub(pd_in[j], q[sd.jidx[j]])))
+      D_diag[j] = sd.kd[j] * sd.actuated[j]
+    tl = sd.torque_limit[j]
+    if not _is_c(t):
+      t = K.minimum(K.maximum(t, -tl), tl)
+    tau[j] = t
+
+  # ---- B/C. FK + RNEA ----
+  E0, r0, Rquat, Sw, h, EupL, rupL, Sbody = _emit_fk_rnea(sd, K, q, u)
+
+  # ---- D. CRBA + Cholesky ----
+  M = _emit_crba(sd, EupL, rupL, Sbody, D_diag)
+  L, invd = _emit_chol(K, nv, M)
+
+  # ---- E. contact rows (static plane frame t1=+y, t2=-x, n=+z, matching
+  #      pipeline._tangent_frames for n = z) and limit rows ----
+  ncone = len(sd.slots)
+  nlim = len(sd.limits)
+  Jrows = [dict() for _ in range(3 * ncone + nlim)]   # row -> {dof: scalar}
+  bias = [0.0] * (3 * ncone + nlim)
+  act = [None] * (ncone + nlim)
+  t1, t2, nrm = (0.0, 1.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.0, 1.0)
+  for s_i, slot in enumerate(sd.slots):
+    ba = slot.body_a
+    Ra, pa_ = _mT(E0[ba]), r0[ba]
+    ca = _vadd(pa_, _mv(Ra, slot.local))         # feature point / centre, world
+    depth = _sub(slot.plane_h + slot.radius, ca[2])
+    pos = (ca[0], ca[1], _sub(ca[2], slot.radius))
+    act[s_i] = K.to_float(depth > 0.0)
+    r_t1, r_t2, r_n = 3 * s_i, 3 * s_i + 1, 3 * s_i + 2
+    vn_pre = 0.0
+    for j in sd.anc_dofs[ba]:
+      ang, lin = Sw[j]
+      col = _vadd(lin, _cross(ang, pos))
+      Jrows[r_t1][j] = _dot(col, t1)
+      Jrows[r_t2][j] = _dot(col, t2)
+      Jrows[r_n][j] = _dot(col, nrm)
+      vn_pre = _add2(vn_pre, _mul(_dot(col, nrm), u[j]))
+    b_baum = K.minimum(
+        sd.erp * K.maximum(depth - sd.slop, 0.0) / dt, sd.max_corr)
+    if slot.e > 0.0:
+      b_rest = K.where(vn_pre < -slot.thresh, -slot.e * vn_pre, 0.0)
+      bias[r_n] = K.maximum(b_rest, b_baum)
+    else:
+      bias[r_n] = b_baum
+
+  for k, lim in enumerate(sd.limits):
+    row = 3 * ncone + k
+    q_pred = _add2(q[lim.qadr], _mul(dt, u[lim.vadr]))
+    near_hi = q_pred > lim.hi
+    near_lo = q_pred < lim.lo
+    s = K.where(near_hi, -1.0, 1.0)
+    viol = K.maximum(lim.lo - q_pred, q_pred - lim.hi)
+    bias[row] = K.minimum(K.maximum(sd.erp * K.maximum(viol, 0.0) / dt, 0.0),
+                          sd.max_corr)
+    act[ncone + k] = K.to_float(near_lo | near_hi)
+    Jrows[row][lim.vadr] = s
+
+  # ---- F. triangular solves: columns = W rows (J M^-1) + the v_free rhs ----
+  rhs0 = [_sub(_sub(tau[j], h[j]), _mul(D_diag[j], u[j])) for j in range(nv)]
+  W, vf_col = K.solve_columns(Jrows, rhs0, L, invd)
+  vf = [_add2(u[j], _mul(dt, vf_col[j])) for j in range(nv)]
+
+  # ---- G. hoisted GS invariants ----
+  Gii_all, g_packed, ci0_all = [], [], []
+  for i in range(ncone):
+    g = {}
+    for a in range(3):
+      for bb in range(a, 3):
+        tot = 0.0
+        for j, val in Jrows[3 * i + a].items():
+          tot = _add2(tot, _mul(val, W.elem(3 * i + bb, j)))
+        g[(a, bb)] = tot
+    gi = (g[(0, 0)], g[(0, 1)], g[(0, 2)], g[(1, 1)], g[(1, 2)], g[(2, 2)])
+    Gii_all.append(gi)
+    g_packed.append(K.pack(f"gii{i}", gi))
+    ci0 = []
+    for a in range(3):
+      tot = _neg(bias[3 * i + a])
+      for j, val in Jrows[3 * i + a].items():
+        tot = _add2(tot, _mul(val, vf[j]))
+      ci0.append(tot)
+    ci0_all.append(tuple(ci0))
+  lim_g, lim_ci0 = [], []
+  for k in range(nlim):
+    row = 3 * ncone + k
+    j = sd.limits[k].vadr
+    sval = Jrows[row][j]
+    # G_rr = J_row . W_row = s * (s * Minv_jj) = Minv_jj (W already carries s)
+    lim_g.append(_mul(sval, W.elem(row, j)))
+    lim_ci0.append(_sub(_mul(sval, vf[j]), bias[row]))
+
+  # ---- H. matrix-free Gauss-Seidel cone solve, then the limit rows ----
+  z = K.cells("z", nv)
+  lam = K.cells("lam", 3 * ncone + nlim)
+
+  def sweep_body():
+    for i in range(ncone):
+      g = Gii_all[i]
+      li = [lam.get(3 * i + a) for a in range(3)]
+      g_mat = ((g[0], g[1], g[2]), (g[1], g[3], g[4]), (g[2], g[4], g[5]))
+      ci = []
+      for a in range(3):
+        diag_a = g_mat[a][0] * li[0] + g_mat[a][1] * li[1] + g_mat[a][2] * li[2]
+        jz = 0.0
+        for j, val in Jrows[3 * i + a].items():
+          jz = _add2(jz, _mul(val, z.get(j)))
+        ci.append(ci0_all[i][a] + jz - diag_a)
+      ln = K.cone_solve(g_packed[i], ci, sd.slots[i].mu, sd.n_grid)
+      ds = []
+      for a in range(3):
+        la = ln[a] * act[i]
+        ds.append(la - li[a])
+        lam.set(3 * i + a, la)
+      K.axpy(z, W, [3 * i, 3 * i + 1, 3 * i + 2], ds)
+    for k in range(nlim):
+      row = 3 * ncone + k
+      jdof = sd.limits[k].vadr
+      li2 = lam.get(row)
+      jz = _mul(Jrows[row][jdof], z.get(jdof))
+      c2 = lim_ci0[k] + jz - lim_g[k] * li2
+      ln2 = K.maximum(-c2 / (lim_g[k] + 1e-20), 0.0) * act[ncone + k]
+      K.axpy(z, W, [row], [ln2 - li2])
+      lam.set(row, ln2)
+
+  if ncone + nlim:
+    K.repeat(sd.sweeps, sweep_body)
+
+  # ---- I. integrate (quaternion exp-map for FREE and SPHERICAL) ----
+  u_new = [_add2(vf[j], z.get(j)) for j in range(nv)]
+  q_new = [None] * sd.nq
+
+  def quat_step(quat, R, va):
+    w_w = _mv(R, (u_new[va], u_new[va + 1], u_new[va + 2]))
+    wdt = _vscale(dt, w_w)
+    ang2 = _add(*[_mul(x, x) for x in wdt])
+    angle = K.sqrt(ang2 + 1e-32)
+    half = 0.5 * angle
+    sinc_half = K.where(ang2 > 1e-16, K.sin(half) / angle, 0.5 - ang2 / 48.0)
+    dq = (K.cos(half), sinc_half * wdt[0], sinc_half * wdt[1],
+          sinc_half * wdt[2])
+    w1, x1, y1, z1 = dq
+    w2, x2, y2, z2 = quat
+    qn = (w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+          w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+          w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+          w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2)
+    norm = K.rsqrt(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2]
+                   + qn[3] * qn[3] + 1e-12)
+    return [qn[k] * norm for k in range(4)]
+
+  for i in range(nb):
+    jt = sd.joint_types[i]
+    qa, va = sd.q_adr[i], sd.v_adr[i]
+    if jt == JointType.FREE:
+      quat, R = Rquat[i]
+      for k in range(3):
+        q_new[qa + k] = _add2(q[qa + k], _mul(dt, u_new[va + 3 + k]))
+      q_new[qa + 3:qa + 7] = quat_step(quat, R, va)
+    elif jt == JointType.SPHERICAL:
+      quat, R = Rquat[i]
+      q_new[qa:qa + 4] = quat_step(quat, R, va)
+    else:
+      q_new[qa] = _add2(q[qa], _mul(dt, u_new[va]))
+  return q_new, u_new
+
+
+# ---------------------------------------------------------------------------
+# The plain twin and the kernel source
+# ---------------------------------------------------------------------------
+
+
+def _fused_plain(sd: _StaticData, q, u, tau, pd=None, return_ops: bool = False):
+  """The kernel's arithmetic in plain PyTorch: q (B, nq), u, tau, pd (B, nv)
+  on any device, in their dtype. Returns (q', u') (and the per-world
+  operation tally if `return_ops`)."""
+  K = _TorchOps(q.shape[0], q.dtype, q.device)
+  cols = lambda x, n: [_Val(K, x[:, k]) for k in range(n)]   # noqa: E731
+  pd_v = cols(pd, sd.nv) if sd.use_pd else None
+  q_new, u_new = _emit_step(sd, K, cols(q, sd.nq), cols(u, sd.nv),
+                            cols(tau, sd.nv), pd_v)
+  out = (torch.stack([K.t(x) for x in q_new], 1),
+         torch.stack([K.t(x) for x in u_new], 1))
+  return out + (K.ops,) if return_ops else out
+
+
+_SOURCE_HEAD = """\
+// Fused full physics step (K1) for one scene, one world per thread.
+// Generated by raisimlib_torch/ops/gpu_step.py (kernel_source) from the
+// scene's static data; the frame (thread -> world, launch) is
+// csrc/fused_step.cuh. {summary}
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "cone_solve.cuh"
+
+// the body loads every input and names every intermediate; nvcc drops the
+// ones a scene does not use
+#pragma nv_diag_suppress 177
+
+#define FS_NQ {nq}
+#define FS_NV {nv}
+#define FS_USE_PD {use_pd}
+
+namespace {{
+
+__device__ __forceinline__ void fs_body(const float* __restrict__ q,
+                                        const float* __restrict__ u,
+                                        const float* __restrict__ tau,
+                                        const float* __restrict__ pd,
+                                        float* __restrict__ qo,
+                                        float* __restrict__ uo) {{
+"""
+
+_SOURCE_TAIL = """\
+}
+
+}  // namespace
+
+#include "fused_step.cuh"
+"""
+
+
+def kernel_source(sd: _StaticData):
+  """The CUDA source of the fused step for `sd`, and its operation tally per
+  world. Deterministic: the same static data gives the same text."""
+  K = _CudaOps()
+  dth = 2.0 * math.pi / sd.n_grid
+  K.emit(f"const rsl::ConeConsts cc = {{{sd.n_grid}, {_lit(dth)}, {_lit(0.5 * dth)}, "
+         f"{_lit(0.125 * dth)}, {_lit(dth / 16.0)}}};")
+
+  def loads(name, n):
+    vals = []
+    for k in range(n):
+      K.emit(f"const float {name}{k} = {name}[{k}];")
+      vals.append(_Val(K, f"{name}{k}"))
+    return vals
+
+  q, u, tau = loads("q", sd.nq), loads("u", sd.nv), loads("tau", sd.nv)
+  pd = loads("pd", sd.nv) if sd.use_pd else None
+  q_new, u_new = _emit_step(sd, K, q, u, tau, pd)
+  for k, x in enumerate(q_new):
+    K.emit(f"qo[{k}] = {K.e(x)};")
+  for k, x in enumerate(u_new):
+    K.emit(f"uo[{k}] = {K.e(x)};")
+  summary = (f"nb = {sd.nb}, nq = {sd.nq}, nv = {sd.nv}, {len(sd.slots)} contact "
+             f"slots, {len(sd.limits)} limit rows, {sd.sweeps} sweeps: "
+             f"{K.ops} operations per world.")
+  head = _SOURCE_HEAD.format(summary=summary, nq=sd.nq, nv=sd.nv,
+                             use_pd=int(sd.use_pd))
+  return head + "\n".join(K.lines) + "\n" + _SOURCE_TAIL, K.ops
+
+
+# ---------------------------------------------------------------------------
+# The kernel and the public wrapper
+# ---------------------------------------------------------------------------
+
+_SYMBOLS = {"fused_step_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]}
+
+
+class FusedKernel:
+  """The generated kernel of one scene: its source is registered with
+  `_build` at construction and compiled with nvcc at the first launch (or
+  by `_build.build()`, with the other kernels, in parallel)."""
+
+  def __init__(self, sd: _StaticData):
+    self.sd = sd
+    self.source, self.ops_per_world = kernel_source(sd)
+    self.name = _build.add_generated("fused_step", self.source, _SYMBOLS)
+
+  def launch(self, q, u, tau, pd):
+    """(q', u') for float32 CUDA tensors q (B, nq), u, tau, pd (B, nv)."""
+    sd = self.sd
+    B = q.shape[0]
+    ins = {"q": (q, sd.nq), "u": (u, sd.nv), "tau": (tau, sd.nv)}
+    if sd.use_pd:
+      ins["pd"] = (pd, sd.nv)
+    for name, (x, n) in ins.items():
+      if not x.is_cuda or x.device != q.device:
+        raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+      if x.dtype != torch.float32:
+        raise TypeError(f"the fused CUDA step takes float32 only; {name} is {x.dtype}")
+      if tuple(x.shape) != (B, n):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {(B, n)}")
+    q, u, tau = q.contiguous(), u.contiguous(), tau.contiguous()
+    pd = pd.contiguous() if sd.use_pd else None
+    qo = torch.empty_like(q)
+    uo = torch.empty_like(u)
+    lib = _build.load(self.name)
+    rc = lib.fused_step_launch(q.data_ptr(), u.data_ptr(), tau.data_ptr(),
+                               pd.data_ptr() if pd is not None else None,
+                               qo.data_ptr(), uo.data_ptr(), B,
+                               torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+      raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
+    make_step_batch_fused.launches += 1
+    return qo, uo
+
+
+class _FusedFn(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, q, u, tau, pd, step):
+    ctx.step = step
+    ctx.save_for_backward(q, u, tau, pd)
+    if q.is_cuda:
+      return step.kernel.launch(q, u, tau, pd)
+    return _fused_plain(step.sd, q, u, tau, pd)
+
+  @staticmethod
+  def backward(ctx, dq, du):
+    step = ctx.step
+    inputs = [None if x is None else x.detach().requires_grad_(need)
+              for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    diff = [x for x in inputs if x is not None and x.requires_grad]
+    q, u, tau, pd = inputs
+    with torch.enable_grad():
+      s = pipeline.step_batch(step.scene, State(q=q, u=u, t=torch.zeros_like(q[:, 0])),
+                              tau, pd, step.config)
+      grads = iter(torch.autograd.grad((s.q, s.u), diff, (dq, du), allow_unused=True))
+    return tuple(next(grads) if x is not None and x.requires_grad else None
+                 for x in inputs) + (None,)
+
+
+class FusedStep:
+  """step(state, tau, pd_target=None) -> State: one physics step of a batch
+  of worlds, as pipeline.step_batch computes it (see make_step_batch_fused)."""
+
+  def __init__(self, scene, config, use_pd: bool):
+    self.scene, self.config, self.use_pd = scene, config, use_pd
+    self.sd = _analyze(scene, config, use_pd)
+    self._kernel = None
+
+  @property
+  def kernel(self) -> FusedKernel:
+    """The scene's kernel (source generated and registered at first use)."""
+    if self._kernel is None:
+      self._kernel = FusedKernel(self.sd)
+    return self._kernel
+
+  def __call__(self, state: State, tau, pd_target=None) -> State:
+    pd = pd_target if self.use_pd else None
+    if self.use_pd and pd is None:
+      raise ValueError("this fused step was built with use_pd=True: pass pd_target")
+    q, u = _FusedFn.apply(state.q, state.u, tau, pd, self)
+    return State(q=q, u=u, t=state.t + self.sd.dt)
+
+
+def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
+  """Fused replacement for pipeline.step_batch on eligible scenes (K1a).
+
+  Returns step(state, tau, pd_target) -> State (pd_target ignored when
+  use_pd=False). CUDA tensors (float32) launch the generated kernel and
+  count one launch in `make_step_batch_fused.launches`; CPU tensors run the
+  twin `_fused_plain`. Gradients differentiate pipeline.step_batch (whose
+  contact solve's backward runs `_mf_pure`), the forward/backward split of
+  the JAX package's custom VJP. Raises FusedStepUnsupported for scenes
+  outside the kernel's class."""
+  config = config if config is not None else pipeline.StepConfig()
+  return FusedStep(scene, config, use_pd)
+
+
+make_step_batch_fused.launches = 0
+
+
+def fused_step_cost(sd: _StaticData, B: int, ops_per_world: int):
+  """(bytes, operations) of one fused step of B worlds, for its bound: each
+  float32 input (q, u, tau and pd when used) read once and each output
+  (q', u') written once; the operations the kernel's source runs per world
+  (its own tally) times B."""
+  n_in = sd.nq + 2 * sd.nv + (sd.nv if sd.use_pd else 0)
+  return 4 * B * (n_in + sd.nq + sd.nv), B * ops_per_world

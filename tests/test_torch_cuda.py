@@ -1,5 +1,5 @@
-"""Tests that need the card: the hand-written CUDA kernels against their plain
-PyTorch twins on the GPU. They skip without a CUDA device. JAX is not needed,
+"""Tests that need the card: the hand-written CUDA kernels (K2, and the fused
+step K1) against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX is not needed,
 so on the GPU machine they run without the JAX test configuration:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -13,7 +13,7 @@ can pick a neighbouring angle."""
 import pytest
 import torch
 
-from torch_port_util import anymal_factors
+from torch_port_util import anymal_factors, load_golden, perturbed_states, torch_anymal_scene
 
 
 @pytest.mark.cuda
@@ -36,3 +36,37 @@ def test_mf_solve_kernel_matches_plain_twin():
   scale = float(lp.abs().max()) + 1.0
   rel = ((lk - lp).abs() / scale).cpu().numpy()
   assert (rel < 1e-4).mean() >= 0.99 and rel.max() < 3e-2
+
+
+@pytest.mark.cuda
+def test_fused_step_kernel_matches_plain_twin():
+  """The fused full-step kernel (K1) against `_fused_plain` on the card, at
+  B = 1037 (not a multiple of the block), through make_step_batch_fused.
+  Two tiers per world, as chip_smoke.py's phase 7: 99% of worlds within
+  2e-5 on q and 2e-4 on u (float32 rounding and FMA contraction, amplified
+  by the Gauss-Seidel sweeps), every world within 5e-4 and 5e-3."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  import numpy as np
+
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops.integrator import State
+
+  g = load_golden()
+  step = gpu_step.make_step_batch_fused(torch_anymal_scene(dtype=torch.float32,
+                                                           device="cuda"))
+  q, u = perturbed_states(g, 1037, seed=11)
+  f32 = dict(dtype=torch.float32, device="cuda")
+  pd = torch.tensor(np.tile(g["pd_targets"][0], (1037, 1)), **f32)
+  tau = torch.zeros_like(pd)
+  s = State(q=torch.tensor(q, **f32), u=torch.tensor(u, **f32), t=torch.zeros(1037, **f32))
+  n0 = gpu_step.make_step_batch_fused.launches
+  with torch.inference_mode():
+    sk = step(s, tau, pd)
+    qp, up = gpu_step._fused_plain(step.sd, s.q, s.u, tau, pd)
+  torch.cuda.synchronize()
+  assert gpu_step.make_step_batch_fused.launches == n0 + 1
+  dq = (sk.q - qp).abs().amax(1).cpu().numpy()
+  du = (sk.u - up).abs().amax(1).cpu().numpy()
+  assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
+  assert dq.max() <= 5e-4 and du.max() <= 5e-3

@@ -16,7 +16,7 @@ FORBIDDEN = ("jax", "flax", "raisimlib_tpu")
 def test_import_loads_no_jax():
   code = ("import sys, raisimlib_torch, raisimlib_torch.convert, "
           "raisimlib_torch.mpc.mppi, raisimlib_torch.mpc.state_map, "
-          "raisimlib_torch.ops.pipeline\n"
+          "raisimlib_torch.ops.pipeline, raisimlib_torch.ops.gpu_step\n"
           f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
           "print(bad); sys.exit(1 if bad else 0)")
   env = dict(os.environ, PYTHONPATH=REPO)
@@ -55,3 +55,27 @@ def test_world_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
       World()
   assert World(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("factory", ["build_model", "build_geom_table"])
+def test_table_factories_default_to_cuda(factory):
+  """build_model and build_geom_table, called without a device, put their
+  tables on the card (and raise without one), as World does."""
+  import numpy as np
+
+  from raisimlib_torch.models.model import JointType, build_model
+  from raisimlib_torch.ops import collision as coll
+
+  if factory == "build_model":
+    bodies = [dict(parent=-1, joint=JointType.REVOLUTE, mass=1.0)]
+    make = lambda **kw: build_model("arm", bodies, **kw).q_init   # noqa: E731
+  else:
+    specs = [coll.GeomSpec(0, coll.GEOM_SPHERE, np.array([0.1, 0, 0, 0]), np.zeros(3),
+                           np.eye(3), 0)]
+    make = lambda **kw: coll.build_geom_table(specs, **kw).params   # noqa: E731
+  if torch.cuda.is_available():
+    assert make().device.type == "cuda"
+  else:
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+      make()
+  assert make(device="cpu").device.type == "cpu"

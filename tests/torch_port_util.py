@@ -31,13 +31,13 @@ def jax_anymal_scene(dtype=None, dt=0.0025, kp=100.0, kd=2.0):
   return world.compile().set_pd_gains(kp, kd)
 
 
-def torch_anymal_scene(dtype=torch.float64, dt=0.0025, kp=100.0, kd=2.0):
+def torch_anymal_scene(dtype=torch.float64, dt=0.0025, kp=100.0, kd=2.0, device="cpu"):
   from raisimlib_torch.models import anymal
   from raisimlib_torch.models.urdf import load_urdf
   from raisimlib_torch.world import World
 
   bodies, geoms, _ = load_urdf(anymal.anymal_urdf())
-  world = World(dt=dt, dtype=dtype, device="cpu")
+  world = World(dt=dt, dtype=dtype, device=device)
   world.add_articulated_system(bodies, name="anymal", geoms=geoms)
   world.add_ground()
   return world.compile().set_pd_gains(kp, kd)
