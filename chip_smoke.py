@@ -5,12 +5,12 @@ Run from the repository root on a machine with an H100 and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the hand-written kernels (one nvcc per source, in parallel), then
-drives the port's two main paths on the ANYmal balance configuration through
-their public entry points:
+drives the port's two main paths on the ANYmal balance configuration, and the
+terrain path on procedural heightmaps, through their public entry points:
 
   1. card and build: the card's name and power limit; the kernels' build
-     (K2 from csrc/mf_solve.cu, K1 generated for the scene by
-     ops/gpu_step.py), seconds and what ptxas says;
+     (K2 from csrc/mf_solve.cu; K1 generated by ops/gpu_step.py for the flat
+     scene and, as K1c, for the terrain scene), seconds and what ptxas says;
   K2 path (pipeline.step_batch, fused="never"):
   2. K2 against its plain twin on the card (float32): the ANYmal solver
      inputs at B = 4096, random problems with nc = 1, 4, 12, lin and
@@ -28,13 +28,28 @@ their public entry points:
   8. rollouts through K1, B = 16384 x H = 50;
   9. MPPI through make_contact_dyn_batch(fused="require"), as phase 4;
   10. the golden replay through K1, under the same gate as phase 5;
-  11. K1 times at B = 16384 (and B = 2048, the MPPI batch).
+  11. K1 times at B = 16384 (and B = 2048, the MPPI batch);
+  terrain (ANYmal on a 12 x 6 m heightmap of 48 x 24 samples; 12 "hm_pt"
+  slots, K1c):
+  12. 64 fractal terrains from utils/terrain.generate (seed 11, z_scale 0.06)
+      and the K1c source's size, tally and ptxas line;
+  13. K1c against its twin and against the K2 path (Scene.step_batch with
+      field_heights), B = 4096, one terrain per world, from perturbed
+      standing states and from 20 steps into a rollout;
+  14. terrain rollouts through K1c, B = 16384 x H = 50, the 64 terrains tiled;
+  15. the trot MPPI of examples/anymal_trot_heightmap.py through
+      make_contact_dyn_batch(fused="require") with env_ctx: 4 terrains x 96
+      samples, H = 16, 8 substeps, 150 ticks (3 s); no robot may fall;
+  16. tests/goldens/anymal_trot_heightmap.npz through K1c and through the K2
+      path (80 steps, f32), under the trot gate of utils/parity.py;
+  17. K1c times at B = 16384 and B = 384 (the trot batch).
 
-Both launch counters are set to 0 just before phases 3, 4, 8 and 9 and read
-just after: each path must launch its own kernel once per physics step and
-the other kernel never. Any failure exits non-zero. The last line of standard
-output is one JSON object naming the device; the line before it holds the
-kernels' numbers, and the line before that the card's name and power limit.
+Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14 and 15
+and read just after: each path must launch its own kernel once per physics
+step and the other kernel never. Any failure exits non-zero. The last line of
+standard output is one JSON object naming the device; the line before it
+holds the kernels' numbers, and the line before that the card's name and
+power limit.
 """
 
 import json
@@ -58,15 +73,21 @@ def note(msg):
   print(msg, flush=True)
 
 
-def anymal_scene(torch, dt=0.0025, kp=100.0, kd=2.0, device=None):
+def anymal_scene(torch, dt=0.0025, kp=100.0, kd=2.0, device=None, terrain=False):
+  """ANYmal on the ground plane, or (terrain=True) on a flat 12 x 6 m
+  heightmap of 48 x 24 samples whose heights each step may replace."""
   from raisimlib_torch.models import anymal
   from raisimlib_torch.models.urdf import load_urdf
+  from raisimlib_torch.utils import terrain as tr
   from raisimlib_torch.world import World
 
   bodies, geoms, _ = load_urdf(anymal.anymal_urdf())
   world = World(dt=dt, dtype=torch.float32, device=device)   # None: the card
   world.add_articulated_system(bodies, name="anymal", geoms=geoms)
-  world.add_ground()
+  if terrain:
+    world.add_heightmap(tr.flat(0.0, size=(12.0, 6.0), samples=(48, 24), device=device))
+  else:
+    world.add_ground()
   return world.compile().set_pd_gains(kp, kd)
 
 
@@ -156,13 +177,14 @@ K1_TIGHT = (2e-5, 2e-4)
 K1_CEILING = (5e-4, 5e-3)
 
 
-def check_fused(torch, step, s, tau, pd, label):
-  """K1 (through its wrapper) against `_fused_plain` on the same inputs;
-  returns (max abs err, K1's state)."""
+def check_fused(torch, step, s, tau, pd, label, hts=None):
+  """K1 (through its wrapper) against `_fused_plain` on the same inputs
+  (and per-world terrain heights `hts` on a heightmap scene); returns (max
+  abs err, K1's state)."""
   from raisimlib_torch.ops import gpu_step as gs
 
-  sk = step(s, tau, pd)
-  qp, up = gs._fused_plain(step.sd, s.q, s.u, tau, pd)
+  sk = step(s, tau, pd, field_heights=hts)
+  qp, up = gs._fused_plain(step.sd, s.q, s.u, tau, pd, step.heights(s.q, hts))
   torch.cuda.synchronize()
   if not (torch.isfinite(sk.q).all() and torch.isfinite(sk.u).all()):
     fail(f"{label}: K1 output not finite")
@@ -177,12 +199,12 @@ def check_fused(torch, step, s, tau, pd, label):
   return max(dq_max, du_max), sk
 
 
-def check_against_k2(torch, scene, step, s, tau, pd, label):
+def check_against_k2(torch, scene, step, s, tau, pd, label, hts=None):
   """K1 against the K2 path (Scene.step_batch) on the same inputs, at the
   kernel-vs-pure bounds of tests/test_torch_step.py (allclose: 5e-4 + 1e-4
   |ref| on q, 5e-3 + 1e-3 |ref| on u)."""
-  s1 = step(s, tau, pd)
-  s2 = scene.step_batch(s, tau, pd)
+  s1 = step(s, tau, pd, field_heights=hts)
+  s2 = scene.step_batch(s, tau, pd, field_heights=hts)
   torch.cuda.synchronize()
   over_q = float(((s1.q - s2.q).abs() - 5e-4 - 1e-4 * s2.q.abs()).max())
   over_u = float(((s1.u - s2.u).abs() - 5e-3 - 1e-3 * s2.u.abs()).max())
@@ -190,6 +212,11 @@ def check_against_k2(torch, scene, step, s, tau, pd, label):
        f"max |du| {float((s1.u - s2.u).abs().max()):.2e}")
   if over_q > 0.0 or over_u > 0.0:
     fail(f"{label}: K1 and the K2 path part beyond the kernel-vs-pure bounds")
+
+
+def sync(torch, dev):
+  if torch.device(dev).type == "cuda":
+    torch.cuda.synchronize()
 
 
 def time_cuda(torch, fn, reps):
@@ -317,6 +344,135 @@ def golden_replay(torch, step, label):
     fail(f"{label} golden gate: " + "; ".join(failures))
 
 
+def make_terrains(torch, n, seed=11, device=None):
+  """(n, 48, 24) fractal heights (12 x 6 m, z_scale 0.06) on `device` (None:
+  the card), the lattices drawn from one torch.Generator seeded with `seed`."""
+  from raisimlib_torch.utils import terrain
+
+  props = terrain.TerrainProperties(z_scale=0.06, x_size=12.0, y_size=6.0,
+                                    x_samples=48, y_samples=24)
+  gen = torch.Generator().manual_seed(seed)
+  return torch.stack([terrain.generate(props, gen, device=device).heights for _ in range(n)])
+
+
+def terrain_states(torch, scene, hts, seed, noise=0.02):
+  """standing_states on per-world terrain heights hts (B, nx, ny): the base
+  raised by the terrain's height under it."""
+  from raisimlib_torch.ops import heightmap as hm
+
+  s, pd, q0 = standing_states(torch, scene, hts.shape[0], seed, noise)
+  z, _, _ = hm.surface_at(scene.field.replace(heights=hts), s.q[:, :2])
+  s.q[:, 2] += z
+  return s, pd, q0
+
+
+def gait_reference(torch, n, control_dt, q_stand, freq=1.5, swing=0.22):
+  """(n, 12) PD targets of examples/anymal_trot_heightmap.py: the stance plus
+  trot flexion on the swing pair (LF+RH at phase 0, RF+LH at pi)."""
+  dev = q_stand.device
+  t = torch.arange(n, dtype=torch.float32, device=dev) * control_dt
+  phase = 2.0 * np.pi * freq * t
+  offsets = torch.tensor([0.0, np.pi, np.pi, 0.0], device=dev)
+  mirror = torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev)        # hind legs mirrored
+  sw = torch.clamp(torch.sin(phase[:, None] + offsets[None, :]), min=0.0)
+  tgt = q_stand[None].repeat(n, 1).reshape(n, 4, 3)
+  tgt[:, :, 1] += swing * sw * mirror[None, :]                      # HFE flex
+  tgt[:, :, 2] += -1.6 * swing * sw * mirror[None, :]               # KFE fold
+  return tgt.reshape(n, 12)
+
+
+def run_trot(torch, ticks, gc, gs, E=4, K=96, HM=16, device=None):
+  """examples/anymal_trot_heightmap.py's closed loop on the scenario's widths
+  (scenarios/anymal_trot_heightmap.yaml): ANYmal with kp = 120, kd = 3 on
+  E = 4 terrains, MPPI with K = 96 samples, HM = 16 control steps of 0.02 s,
+  8 physics substeps, sigma 0.1, temperature 0.25, toward 0.35 m/s. Returns
+  (seconds, (K2, K1) counts, final states, MPC solves/s)."""
+  from raisimlib_torch.models import anymal
+  from raisimlib_torch.mpc import mppi, state_map
+  from raisimlib_torch.ops import heightmap as hm
+  from raisimlib_torch.ops.spatial import quat_box_minus
+
+  sub, control_dt, v_target = 8, 0.02, 0.35
+  scene = anymal_scene(torch, kp=120.0, kd=3.0, device=device, terrain=True)
+  dev = scene.device
+  dyn_b, nx, nu = state_map.make_contact_dyn_batch(scene, control_dt, sub, fused="require")
+  heights = make_terrains(torch, E, device=dev)
+  field0 = scene.field
+  q0 = torch.tensor(anymal.standing_q(), dtype=torch.float32, device=dev)
+  z0 = float(q0[2])
+  ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+  gait = gait_reference(torch, ticks + HM, control_dt, q0[7:])
+
+  def rc(X, A, t, h):
+    q, v = X[:, :19], X[:, 19:]
+    z, _, _ = hm.surface_at(field0.replace(heights=h), q[:, :2])
+    return (9.0 * (v[:, 3] - v_target) ** 2                        # forward speed
+            + 30.0 * (q[:, 2] - z - z0) ** 2                        # height over terrain
+            + 8.0 * torch.sum(quat_box_minus(q[:, 3:7], ident) ** 2, 1)
+            + 0.3 * (v[:, 4] ** 2 + v[:, 5] ** 2)                   # lateral, vertical
+            + 0.02 * torch.sum(v[:, 6:] ** 2, 1)) * control_dt
+
+  def fc(X, h):
+    q = X[:, :19]
+    z, _, _ = hm.surface_at(field0.replace(heights=h), q[:, :2])
+    return 100.0 * (q[:, 2] - z - z0) ** 2 + 30.0 * torch.sum(
+        quat_box_minus(q[:, 3:7], ident) ** 2, 1)
+
+  z_start, _, _ = hm.surface_at(field0.replace(heights=heights), q0[None, :2].expand(E, 2))
+  xs = torch.cat([q0[None].repeat(E, 1), torch.zeros((E, 18), device=dev)], 1)
+  xs[:, 2] += z_start
+  dUs = torch.zeros((E, HM, nu), device=dev)
+  cfg = mppi.MPPIConfig(n_samples=K, sigma=0.1, temperature=0.25)
+  gen = torch.Generator(device=dev).manual_seed(7)
+  note(f"  {E} terrains x {K} samples, H={HM}, {sub} substeps, {ticks} ticks of "
+       f"{control_dt} s, fused='require'")
+  with torch.inference_mode():
+    sync(torch, dev)
+    reset_counts(gc, gs)
+    t0 = time.perf_counter()
+    for m in range(ticks):
+      base = gait[m:m + HM]
+      sol = mppi.mppi_step_batch(dyn_b, rc, fc, xs, base[None] + dUs, gen, cfg,
+                                 env_ctx=heights)
+      xs = dyn_b(xs, sol.U[:, 0], 0, heights)
+      dUs = torch.cat([sol.U[:, 1:] - base[None, 1:], sol.U[:, -1:] - base[None, -1:]], 1)
+    sync(torch, dev)
+    t = time.perf_counter() - t0
+    counts = read_counts(gc, gs)
+  return t, counts, xs, E * ticks / t
+
+
+def trot_golden(torch, step_for, label, device=None):
+  """Replay tests/goldens/anymal_trot_heightmap.npz in f32 through
+  `step_for(scene)(state, pd)` and hold it to the trot gate."""
+  from raisimlib_torch.utils import parity
+
+  here = os.path.dirname(os.path.abspath(__file__))
+  g = np.load(os.path.join(here, "tests", "goldens", "anymal_trot_heightmap.npz"))
+  scene = anymal_scene(torch, dt=float(g["dt"]), kp=float(g["kp"]), kd=float(g["kd"]),
+                       device=device, terrain=True)
+  f32 = dict(dtype=torch.float32, device=scene.device)
+  scene = scene.replace(field=scene.field.replace(heights=torch.tensor(g["heights"], **f32)))
+  stepfn = step_for(scene)
+  s = scene.init_state(q=torch.tensor(g["q0"][None], **f32), u=torch.tensor(g["u0"][None], **f32))
+  qs, us = [], []
+  with torch.inference_mode():
+    for tgt in g["pd_targets"]:
+      s = stepfn(s, torch.tensor(tgt[None], **f32))
+      qs.append(s.q[0].cpu().numpy())
+      us.append(s.u[0].cpu().numpy())
+  qs, us = np.stack(qs), np.stack(us)
+  d = parity.trot_deviation(qs, us, g)
+  worst = int(d.max(1).argmax())
+  note(f"  {label}: {len(qs)} steps: {100 * float((d <= parity.TORQUE_GATE).mean()):.2f}% of "
+       f"applied-torque entries within {parity.TORQUE_GATE} N m, max|dtau| {d.max():.3e} N m "
+       f"(step {worst}), max|dq| {np.abs(qs - g['q']).max():.3e}")
+  failures = parity.trot_gate_failures(qs, us, g)
+  if failures:
+    fail(f"{label} trot gate: " + "; ".join(failures))
+  return float(d.max())
+
+
 def main():
   import torch
 
@@ -343,6 +499,13 @@ def main():
   kern = fused.kernel                                # registers the generated source
   note(f"K1 source for the ANYmal scene: {kern.source.count(chr(10))} lines, "
        f"{kern.ops_per_world} operations per world")
+  tscene = anymal_scene(torch, terrain=True)
+  fused_c = gs.make_step_batch_fused(tscene)
+  kern_c = fused_c.kernel                            # K1c, built with the others
+  # the gains are constants of the generated source: the trot scene (kp 120,
+  # kd 3; phases 15, 16) has a kernel of its own, built here too, so that no
+  # build falls inside a timed loop
+  gs.make_step_batch_fused(anymal_scene(torch, kp=120.0, kd=3.0, terrain=True)).kernel
   t0 = time.perf_counter()
   built = _build.build()
   note(f"build: {time.perf_counter() - t0:.2f} s in parallel; "
@@ -470,10 +633,11 @@ def main():
       sb, pdb, _ = standing_states(torch, scene, b, seed=seed)
       taub = torch.zeros_like(pdb)
       qo, uo = torch.empty_like(sb.q), torch.empty_like(sb.u)
-      ptrs = [x.data_ptr() for x in (sb.q, sb.u, taub, pdb, qo, uo)]
+      ptrs = [x.data_ptr() for x in (sb.q, sb.u, taub, pdb)]
+      outs = [qo.data_ptr(), uo.data_ptr()]
       k1_times[b] = (
           time_cuda(torch, lambda: fused(sb, taub, pdb), 20),
-          time_cuda(torch, lambda: lib.fused_step_launch(*ptrs, b, stream), 20))
+          time_cuda(torch, lambda: lib.fused_step_launch(*ptrs, None, 0, *outs, b, stream), 20))
     plain1_ms = time_cuda(torch, lambda: gs._fused_plain(fused.sd, s0.q, s0.u, zero_tau, pd), 2)
   ms1, kernel1_ms = k1_times[B]
   nbytes1, nops1 = gs.fused_step_cost(fused.sd, B, kern.ops_per_world)
@@ -507,11 +671,138 @@ def main():
       "ops_per_world": kern.ops_per_world,
       "build_s": built.get(kern.name),
   }
+
+  # ---- 12. terrain scene and K1c build ------------------------------------------------
+  note("phase 12: terrain scene (ANYmal, 12 x 6 m heightmap, 48 x 24 samples) and K1c")
+  with torch.inference_mode():
+    hts64 = make_terrains(torch, 64)
+  if not bool(torch.isfinite(hts64).all()):
+    fail("terrain heights not finite")
+  note(f"  64 terrains (seed 11, z_scale 0.06): heights in [{float(hts64.min()):.4f}, "
+       f"{float(hts64.max()):.4f}] m")
+  note(f"  K1c source: {kern_c.source.count(chr(10))} lines, {kern_c.ops_per_world} operations "
+       f"and {kern_c.loads_per_world} height loads per world, "
+       f"{len(fused_c.sd.slots)} hm_pt slots; nvcc {built.get(kern_c.name, 0.0):.2f} s")
+  for line in _build.build_logs.get(kern_c.name, "").splitlines():
+    if "registers" in line or "spill" in line:
+      note(f"  ptxas[K1c]: {line.strip()}")
+
+  # ---- 13. K1c vs its plain twin, and vs the K2 path ----------------------------------
+  note("phase 13: K1c vs plain twin (float32), and vs the K2 path, one terrain per world")
+  with torch.inference_mode():
+    hts13 = hts64.repeat(4096 // 64, 1, 1)
+    s, pd13, _ = terrain_states(torch, tscene, hts13, seed=13)
+    tau13 = torch.zeros_like(pd13)
+    errc_a, _ = check_fused(torch, fused_c, s, tau13, pd13, "terrain, perturbed standing states",
+                            hts13)
+    check_against_k2(torch, tscene, fused_c, s, tau13, pd13, "K1c vs K2 path, standing", hts13)
+    for _ in range(20):
+      s = fused_c(s, tau13, pd13, field_heights=hts13)
+    errc_b, _ = check_fused(torch, fused_c, s, tau13, pd13, "terrain, 20 steps into a rollout",
+                            hts13)
+    check_against_k2(torch, tscene, fused_c, s, tau13, pd13, "K1c vs K2 path, 20 steps in", hts13)
+  k1c_err = max(errc_a, errc_b)
+
+  # ---- 14. terrain rollouts through K1c -------------------------------------------------
+  note(f"phase 14: terrain rollouts through K1c, B={B}, H={H}, 64 terrains tiled")
+  with torch.inference_mode():
+    hts14 = hts64.repeat(B // 64, 1, 1)
+    s14, pd14, _ = terrain_states(torch, tscene, hts14, seed=14)
+    tau14 = torch.zeros_like(pd14)
+    _, t_roll_c, counts = rollouts(
+        torch, lambda st, p: fused_c(st, tau14, p, field_heights=hts14), s14, pd14, H, gc, gs,
+        "K1c")
+  if counts != (0, H):
+    fail(f"terrain rollouts launched (K2, K1) {counts} times for {H} steps")
+  k1c_launches_roll = counts[1]
+  note(f"  terrain rollouts/s {B / t_roll_c:.1f}")
+
+  # ---- 15. trot MPPI through K1c ------------------------------------------------------------
+  ticks = 150
+  note("phase 15: trot MPPI (examples/anymal_trot_heightmap.py) through K1c")
+  t_trot, counts, xf, trot_solves = run_trot(torch, ticks, gc, gs)
+  if counts != (0, ticks * (16 * 8 + 8)):
+    fail(f"trot MPPI launched (K2, K1) {counts} times for {ticks} ticks")
+  k1c_launches_trot = counts[1]
+  if not bool(torch.isfinite(xf).all()):
+    fail("trot state not finite")
+  z_end = xf[:, 2].cpu().numpy()
+  note(f"  MPC solves/s {trot_solves:.2f} ({ticks} ticks in {t_trot:.2f} s)  launches K2 "
+       f"{counts[0]} K1 {counts[1]}  forward distance {np.round(xf[:, 0].cpu().numpy(), 3).tolist()} m"
+       f"  final base z {np.round(z_end, 3).tolist()} m")
+  if not (z_end > 0.3).all():
+    fail(f"a robot fell: final base z {z_end.tolist()}")
+
+  # ---- 16. the trot golden through K1c and through the K2 path ------------------------
+  note("phase 16: trot golden (tests/goldens/anymal_trot_heightmap.npz) through K1c and K2")
+
+  def fused_trot(sc):
+    step = gs.make_step_batch_fused(sc)
+    return lambda st, p: step(st, torch.zeros_like(p), p)
+
+  trot_dev_k1 = trot_golden(torch, fused_trot, "K1c")
+  trot_dev_k2 = trot_golden(torch, lambda sc: lambda st, p: sc.step_batch(st, pd_target=p), "K2")
+
+  # ---- 17. K1c times -----------------------------------------------------------------------
+  note(f"phase 17: K1c times at B={B} (and B=384, the trot batch)")
+  lib_c = _build.load(kern_c.name)
+  k1c_times = {}
+  with torch.inference_mode():
+    for b, seed in ((B, 17), (384, 18)):
+      hb = hts64.repeat((b + 63) // 64, 1, 1)[:b].contiguous()
+      sb, pdb, _ = terrain_states(torch, tscene, hb, seed=seed)
+      taub = torch.zeros_like(pdb)
+      qo, uo = torch.empty_like(sb.q), torch.empty_like(sb.u)
+      ptrs = [x.data_ptr() for x in (sb.q, sb.u, taub, pdb)]
+      outs = [qo.data_ptr(), uo.data_ptr()]
+      k1c_times[b] = (
+          time_cuda(torch, lambda: fused_c(sb, taub, pdb, field_heights=hb), 20),
+          time_cuda(torch, lambda: lib_c.fused_step_launch(
+              *ptrs, hb.data_ptr(), hb.stride(0), *outs, b, stream), 20))
+      if b == B:
+        plain_c_ms = time_cuda(
+            torch, lambda: gs._fused_plain(fused_c.sd, sb.q, sb.u, taub, pdb, hb), 2)
+  msc, kernel_c_ms = k1c_times[B]
+  nbytes_c, nops_c = gs.fused_step_cost(fused_c.sd, B, kern_c.ops_per_world,
+                                        kern_c.loads_per_world)
+  t_bytes_c = nbytes_c / H100_BYTES_PER_S * 1e3
+  t_ops_c = nops_c / H100_F32_OPS_PER_S * 1e3
+  note(f"  B={B}: wrapper {msc:.3f} ms (kernel alone {kernel_c_ms:.3f} ms), plain twin "
+       f"{plain_c_ms:.3f} ms; bound {max(t_bytes_c, t_ops_c):.4f} ms ({nbytes_c / 1e6:.1f} MB "
+       f"-> {t_bytes_c:.4f} ms, {nops_c / 1e9:.2f} GFLOP -> {t_ops_c:.4f} ms)")
+  trot_share = k1c_launches_trot * k1c_times[384][1] / 1e3 / t_trot
+  note(f"  B=384: wrapper {k1c_times[384][0]:.3f} ms (kernel alone {k1c_times[384][1]:.3f} ms); "
+       f"trot MPPI: kernel time {100 * trot_share:.1f}% of the wall time")
+  k1c = {
+      "name": "fused_step (K1c, hm_pt slots: heightmap probe + riser march; cone_solve K3 "
+              "inlined)",
+      "route": "cuda",
+      "source": "raisimlib_torch/ops/gpu_step.py",
+      "template": "raisimlib_torch/csrc/fused_step.cuh",
+      "replaces": "raisimlib_tpu/ops/pallas_step.py:995",
+      "launches": k1c_launches_roll + k1c_launches_trot,
+      "launches_rollouts": k1c_launches_roll,
+      "launches_trot_mppi": k1c_launches_trot,
+      "max_abs_err": k1c_err,
+      "ms": msc,
+      "kernel_only_ms": kernel_c_ms,
+      "plain_ms": plain_c_ms,
+      "bound_ms": max(t_bytes_c, t_ops_c),
+      "bound_by": "bytes" if t_bytes_c >= t_ops_c else "operations",
+      "library_ms": None,
+      "ms_b384": k1c_times[384][0],
+      "kernel_only_ms_b384": k1c_times[384][1],
+      "ops_per_world": kern_c.ops_per_world,
+      "height_loads_per_world": kern_c.loads_per_world,
+      "build_s": built.get(kern_c.name),
+      "trot_golden_max_dtau": {"K1c": trot_dev_k1, "K2": trot_dev_k2},
+  }
   note(f"  end to end: rollouts/s through K1 {B / t_roll1:.1f}; MPPI solves/s through "
-       f"K2 {32 / t_mppi:.2f}, through K1 {32 / t_mppi1:.2f}")
+       f"K2 {32 / t_mppi:.2f}, through K1 {32 / t_mppi1:.2f}; terrain rollouts/s through K1c "
+       f"{B / t_roll_c:.1f}; trot MPC solves/s through K1c {trot_solves:.2f}")
   note(f"total {time.perf_counter() - t_start:.1f} s")
   note(f"card: {card}")
-  print(json.dumps({"kernels": [k2, k1]}), flush=True)
+  print(json.dumps({"kernels": [k2, k1, k1c]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

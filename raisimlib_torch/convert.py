@@ -11,6 +11,8 @@ arrays: model tables (X_rot, X_pos, axis, inertia, mass, actuated,
 static: name, parent, joint_types, q_adr, v_adr, nq, nv, body_names, gtype,
   geom_body, geom_material, pairs, constraints (the 7 fields of
   ConstraintTables, in order), dt, objects.
+A heightmap terrain, when the scene has one: arrays field_heights (nx, ny)
+and field_center (2,), static field_size (size_x, size_y).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from raisimlib_torch._device import resolve_device
 from raisimlib_torch.models.model import TENSOR_FIELDS, RobotModel
 from raisimlib_torch.ops import collision as coll
 from raisimlib_torch.ops import constraints as cs
+from raisimlib_torch.ops.heightmap import HeightField
 from raisimlib_torch.world import Scene
 
 
@@ -46,7 +49,12 @@ def scene_from_numpy(arrays: dict, static: dict, device=None, dtype=None) -> Sce
   tabs = cs.ConstraintTables(*(tuple(f) for f in static["constraints"]))
   if tabs.wires or tabs.pins or tabs.compliant:
     raise cs._unported("wires and pins")
+  field = None
+  if "field_heights" in arrays:
+    size_x, size_y = (float(x) for x in static["field_size"])
+    field = HeightField(heights=t("field_heights"), center=t("field_center"),
+                        size_x=size_x, size_y=size_y)
   return Scene(model=model, geoms=geoms, pairs=tuple(map(tuple, static["pairs"])),
                materials=t("materials"), gravity=t("gravity"), dt=float(static["dt"]),
-               kp=t("kp"), kd=t("kd"), constraints=tabs,
+               kp=t("kp"), kd=t("kd"), constraints=tabs, field=field,
                objects=tuple(map(tuple, static.get("objects", ()))))

@@ -50,6 +50,7 @@ def mppi_step_batch(
     generator: Optional[torch.Generator] = None,
     config: MPPIConfig = MPPIConfig(),
     eps_white: Optional[torch.Tensor] = None,
+    env_ctx: Optional[torch.Tensor] = None,
 ) -> MPPISolution:
   """One MPPI update of E plans, all E*K sample rollouts in ONE physics batch.
 
@@ -57,7 +58,12 @@ def mppi_step_batch(
   `running_cost(X, A, t) -> (B,)` and `final_cost(X) -> (B,)` are batched.
   `eps_white` (E, K, H, nu), when given, is the already-scaled white noise
   (sigma included); otherwise it is drawn from `generator`. Sample 0 of each
-  environment is the unperturbed plan, and `cost` is its cost."""
+  environment is the unperturbed plan, and `cost` is its cost.
+
+  `env_ctx`, a tensor with leading dimension E (e.g. each environment's
+  terrain heights (E, nx, ny)), is repeated over each environment's K
+  samples and passed on as `dyn_b(X, A, t, ctx)`, `running_cost(X, A, t,
+  ctx)` and `final_cost(X, ctx)`."""
   E, H, nu = Us.shape
   K = config.n_samples
   if eps_white is None:
@@ -70,10 +76,11 @@ def mppi_step_batch(
   X = x0s[:, None, :].expand(E, K, x0s.shape[-1]).reshape(E * K, -1)
   Uflat = Usamp.reshape(E * K, H, nu)
   acc = torch.zeros(E * K, dtype=Us.dtype, device=Us.device)
+  ctx = () if env_ctx is None else (env_ctx.repeat_interleave(K, 0),)
   for t in range(H):
-    acc = acc + running_cost(X, Uflat[:, t], t)
-    X = dyn_b(X, Uflat[:, t], t)
-  costs = (acc + final_cost(X)).reshape(E, K)
+    acc = acc + running_cost(X, Uflat[:, t], t, *ctx)
+    X = dyn_b(X, Uflat[:, t], t, *ctx)
+  costs = (acc + final_cost(X, *ctx)).reshape(E, K)
 
   if config.n_elite > 0:
     top = torch.topk(-costs, config.n_elite, dim=1).indices

@@ -34,8 +34,10 @@ def _on_card(scene) -> bool:
 def make_contact_dyn_batch(scene, control_dt: float, substeps: int,
                            use_pd: bool = True, use_kernel: bool = True,
                            fused: str = "auto"):
-  """Batched `dyn_b(X, A, t) -> X_next` for X (B, nx), A (B, nu), rolling
-  `substeps` physics steps per control step.
+  """Batched `dyn_b(X, A, t, ctx=None) -> X_next` for X (B, nx), A (B, nu),
+  rolling `substeps` physics steps per control step. `ctx`, on a heightmap
+  scene, is the per-row terrain heights (B, nx, ny), passed to either step
+  path as its `field_heights` (None: the scene's field).
 
   A holds PD joint-position targets of the actuated dofs if `use_pd`, else
   their torques. The physics step is chosen as in the JAX package:
@@ -71,19 +73,19 @@ def make_contact_dyn_batch(scene, control_dt: float, substeps: int,
       warnings.warn(f"the fused step (K1) does not cover this scene ({e}); "
                     "stepping with pipeline.step_batch", stacklevel=2)
 
-  def step(s, tau, pd):
+  def step(s, tau, pd, ctx):
     if fused_step is not None:
-      return fused_step(s, tau, pd)
-    return pipeline.step_batch(scene, s, tau, pd, use_kernel=use_kernel)
+      return fused_step(s, tau, pd, field_heights=ctx)
+    return pipeline.step_batch(scene, s, tau, pd, field_heights=ctx, use_kernel=use_kernel)
 
-  def dyn_b(X, A, t):
+  def dyn_b(X, A, t, ctx=None):
     B = X.shape[0]
     s = State(q=X[:, :nq], u=X[:, nq:], t=torch.zeros(B, dtype=X.dtype, device=X.device))
     full = torch.zeros((B, model.nv), dtype=X.dtype, device=X.device)
     full[:, act_idx] = A
     zeros_tau = torch.zeros_like(full)
     for _ in range(substeps):
-      s = step(s, zeros_tau, full) if use_pd else step(s, full, None)
+      s = step(s, zeros_tau, full, ctx) if use_pd else step(s, full, None, ctx)
     return torch.cat([s.q, s.u], 1)
 
   return dyn_b, model.nq + model.nv, nu

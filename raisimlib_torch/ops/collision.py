@@ -1,7 +1,7 @@
 """Collision detection over a static pair list, batched over worlds.
 
-Counterpart of raisimlib_tpu/ops/collision.py, restricted to the pairs of the
-plane-contact main path: sphere, box and capsule against the ground plane.
+Counterpart of raisimlib_tpu/ops/collision.py, restricted to sphere, box and
+capsule against the ground plane and against a heightmap (ops/heightmap.py).
 Every other pair type is rejected when the scene is built (candidate_pairs)
 and again by `collide`, with an error that names it.
 
@@ -37,6 +37,9 @@ _PAIR_SLOTS = {
     (GEOM_SPHERE, GEOM_PLANE): 1,
     (GEOM_BOX, GEOM_PLANE): 8,
     (GEOM_CAPSULE, GEOM_PLANE): 2,
+    (GEOM_SPHERE, GEOM_HEIGHTMAP): 1,
+    (GEOM_BOX, GEOM_HEIGHTMAP): 8,
+    (GEOM_CAPSULE, GEOM_HEIGHTMAP): 2,
 }
 
 
@@ -44,7 +47,8 @@ def _unported(ta: int, tb: int) -> NotImplementedError:
   return NotImplementedError(
       f"geom pair ({GEOM_NAMES.get(ta, ta)}, {GEOM_NAMES.get(tb, tb)}) has no "
       f"narrow phase in raisimlib_torch yet (ported: sphere/box/capsule vs "
-      f"plane); see ROADMAP.md, 'Runtime-frame pairs' and 'Rest of collision'")
+      f"plane and heightmap); see ROADMAP.md items 10 (runtime-frame pairs) "
+      f"and 13 (the rest of collision)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +102,8 @@ def build_geom_table(specs: Sequence[GeomSpec], dtype=torch.float32,
 def candidate_pairs(specs: Sequence[GeomSpec], model, self_collision: bool = False) -> tuple:
   """Static candidate pair list (ia, ib), same filter and canonical order as
   the JAX package: no same-body, parent-child, same-object (unless
-  self_collision) or static-static pairs; the plane comes second."""
+  self_collision) or static-static pairs; the plane or heightmap comes
+  second."""
   pairs = []
   for i in range(len(specs)):
     for j in range(i + 1, len(specs)):
@@ -114,7 +119,7 @@ def candidate_pairs(specs: Sequence[GeomSpec], model, self_collision: bool = Fal
       ti, tj = int(specs[i].gtype), int(specs[j].gtype)
       if tuple(sorted((ti, tj))) not in _PAIR_SLOTS:
         raise _unported(ti, tj)
-      pairs.append((j, i) if ti == GEOM_PLANE else (i, j))
+      pairs.append((j, i) if ti in (GEOM_PLANE, GEOM_HEIGHTMAP) else (i, j))
   return tuple(pairs)
 
 
@@ -271,15 +276,14 @@ SINGLE = {
 
 
 def collide(geoms: GeomTable, pairs: tuple, kin, heightmap=None) -> ContactSet:
-  """Run all pair kernels and assemble the padded ContactSet.
+  """Run all pair kernels and assemble the padded ContactSet; `heightmap` is
+  the scene's HeightField (ops/heightmap.py) when it has heightmap pairs.
 
   Pairs are computed group by type and restored to the canonical per-pair
   slot order by one static permutation, so the solver's row order
   (the Gauss-Seidel sweep order) is the JAX package's."""
-  if heightmap is not None:
-    raise NotImplementedError(
-        "heightmap terrain is not ported to raisimlib_torch yet: ROADMAP.md, "
-        "'Heightmap and trot'")
+  from raisimlib_torch.ops import heightmap as hm
+
   B = kin.p.shape[0]
   dtype, dev = kin.p.dtype, kin.p.device
   slot_of_pair = []
@@ -287,8 +291,11 @@ def collide(geoms: GeomTable, pairs: tuple, kin, heightmap=None) -> ContactSet:
   total = 0
   for ia, ib in pairs:
     key = (geoms.gtype[ia], geoms.gtype[ib])
-    if key not in _BATCHED:
+    on_field = key[1] == GEOM_HEIGHTMAP and tuple(sorted(key)) in _PAIR_SLOTS
+    if key not in _BATCHED and not on_field:
       raise _unported(*key)
+    if on_field and heightmap is None:
+      raise ValueError("the scene has heightmap pairs but no heightmap was given")
     ns = _PAIR_SLOTS[tuple(sorted(key))]
     slot_of_pair.append(total)
     total += ns
@@ -297,8 +304,8 @@ def collide(geoms: GeomTable, pairs: tuple, kin, heightmap=None) -> ContactSet:
     mat_a += [geoms.material[ia]] * ns
     mat_b += [geoms.material[ib]] * ns
 
-  # every ported pair is a body-attached geom against the static plane
-  # (candidate_pairs skips static-static pairs), so all run grouped
+  # every ported pair is a body-attached geom against the static plane or
+  # heightmap (candidate_pairs skips static-static pairs), so all run grouped
   groups = {}
   for pi, (ia, ib) in enumerate(pairs):
     groups.setdefault((geoms.gtype[ia], geoms.gtype[ib]), []).append((pi, ia, ib))
@@ -306,8 +313,13 @@ def collide(geoms: GeomTable, pairs: tuple, kin, heightmap=None) -> ContactSet:
   pos_c, nrm_c, dep_c, act_c = [], [], [], []
   computed = []
   for key, entries in groups.items():
-    fn, ns = _BATCHED[key]
-    pos, nrm, dep, val = fn(geoms, [(ia, ib) for _, ia, ib in entries], kin)
+    if key[1] == GEOM_HEIGHTMAP:
+      ns = _PAIR_SLOTS[tuple(sorted(key))]
+      pos, nrm, dep, val = hm.collide_group(geoms, [ia for _, ia, _ in entries], kin,
+                                            heightmap)
+    else:
+      fn, ns = _BATCHED[key]
+      pos, nrm, dep, val = fn(geoms, [(ia, ib) for _, ia, ib in entries], kin)
     pos_c.append(pos)
     nrm_c.append(nrm)
     dep_c.append(dep)

@@ -170,13 +170,19 @@ def solve_contacts(G, c0, mu, active, lam0=None,
 
   G (B, nc, 3, nc, 3) Delassus in contact frames, c0 (B, nc, 3) free velocity
   in contact frames (bias included), mu / active (B, nc). Returns lam (B, nc, 3).
-  Rows are kept as a list so that the sweep stays differentiable by autograd."""
+  Rows are kept as a list so that the sweep stays differentiable by autograd.
+  Without a graph to build, a row that is inactive in every world keeps its
+  zero impulse without a solve (one host read of `active` per call); with
+  one, every row is solved, so that lam stays connected to G and c0."""
   B, nc = c0.shape[:2]
   lam = (torch.zeros_like(c0) if lam0 is None else lam0 * active[..., None]).unbind(1)
   lam = list(lam)
   Gf = G.reshape(B, nc * 3, nc * 3)
+  rows = range(nc)
+  if not (torch.is_grad_enabled() and (G.requires_grad or c0.requires_grad)):
+    rows = [i for i, a in enumerate((active != 0).any(0).tolist()) if a]
   for _ in range(config.sweeps):
-    for i in range(nc):
+    for i in rows:
       Gi = Gf[:, 3 * i:3 * i + 3]                          # (B, 3, 3nc)
       Gii = Gi[:, :, 3 * i:3 * i + 3]
       lam_f = torch.cat(lam, -1)

@@ -1,14 +1,17 @@
 """Fused full physics step (K1): one CUDA kernel launch per step, and its twin.
 
-Counterpart of raisimlib_tpu/ops/pallas_step.py for its first scene class,
-K1a: FREE, REVOLUTE, PRISMATIC and SPHERICAL joints; sphere centres, capsule
-endpoints and box corners against the ground plane (`plane_pt` slots); and
-joint-limit rows. Per world the step runs
+Counterpart of raisimlib_tpu/ops/pallas_step.py for two of its scene
+classes: FREE, REVOLUTE, PRISMATIC and SPHERICAL joints and joint-limit rows,
+with sphere centres, capsule endpoints and box corners as contact points
+against the ground plane (K1a, `plane_pt` slots) or against a heightmap (K1c,
+`hm_pt` slots: heightmap._point_contact, riser march included). Per world
+the step runs
 
     A.   feedforward + implicit PD torque, clamped
     B/C. forward kinematics and the RNEA bias h
     D.   the CRBA mass matrix (+ dt kd on the diagonal) and its Cholesky factor
-    E.   contact rows (static frame t1 = +y, t2 = -x, n = +z) and limit rows
+    E.   contact rows (plane: static frame t1 = +y, t2 = -x, n = +z; heightmap:
+         the probe's normal and pipeline._tangent_frames' frame) and limit rows
     F.   triangular solves of [J^T | rhs0]: the rows of W = J M^-1 and v_free
     G.   the hoisted 3x3 blocks Gii and c0 of each cone, and of each limit row
     H.   Gauss-Seidel sweeps over the cones (exact cone solve), then the limits
@@ -34,9 +37,17 @@ to float32). Both back ends tally the operations they run per world, loop
 bodies times their trip counts; chip_smoke.py's bound for the kernel uses the
 kernel's tally.
 
+On a heightmap the kernel reads each world's heights directly: a thread
+loads the heights of the cells its probes land in (`_emit_hm_probe`), from a
+(B, nx, ny) tensor whose world stride is 0 when every world shares the
+scene's field. The TPU kernel instead cut a root-centred patch per world in
+its wrapper, since a TPU kernel has no vector gather; here the probe
+computes heightmap.surface_at's full-field formula.
+
 `make_step_batch_fused` is the public entry: CUDA tensors launch the kernel
 (or raise), CPU tensors run the twin, and gradients differentiate
-`pipeline.step_batch`, as the JAX package's custom VJP does.
+`pipeline.step_batch` (with the same heights), as the JAX package's custom
+VJP does.
 """
 
 from __future__ import annotations
@@ -278,10 +289,11 @@ def _rodrigues(axis, c, s):
 
 
 class _Slot(NamedTuple):
-  """One contact slot. K1a has one kind, "plane_pt": a feature point (body_a
-  frame, static `local`) + sphere radius against the static plane
-  z = plane_h (sphere centres, capsule endpoints, box corners), with the
-  static contact frame t1 = +y, t2 = -x, n = +z."""
+  """One contact slot: a feature point (body_a frame, static `local`) + sphere
+  radius (sphere centres, capsule endpoints, box corners with radius 0).
+  `kind` "plane_pt" is against the static plane z = plane_h, with the static
+  contact frame t1 = +y, t2 = -x, n = +z; "hm_pt" is against the heightmap,
+  with the probe's runtime normal and frame."""
 
   kind: str
   body_a: int
@@ -298,6 +310,21 @@ class _Limit(NamedTuple):
   qadr: int
   lo: float
   hi: float
+
+
+class _HmStatic(NamedTuple):
+  """The heightfield's static constants. A probe at x has fx = (x - cx + hx)
+  / dx, cell i = floor(fx) clipped to [0, nx - 2], as heightmap.surface_at;
+  the heights themselves are a runtime input."""
+
+  nx: int
+  ny: int
+  dx: float
+  dy: float
+  cx: float             # the field's centre
+  cy: float
+  hx: float             # half its extent, size_x / 2
+  hy: float
 
 
 class _StaticData(NamedTuple):
@@ -337,6 +364,7 @@ class _StaticData(NamedTuple):
   slots: tuple          # of _Slot
   limits: tuple         # of _Limit
   n_wrows: int          # solver rows needing W (3 * ncone + nlim)
+  hm: _HmStatic = None  # the heightfield, for scenes with "hm_pt" slots
 
 
 def _host(x) -> np.ndarray:
@@ -345,13 +373,49 @@ def _host(x) -> np.ndarray:
 
 _UNSUPPORTED_PAIR = ("runtime-frame pairs (K1b) are not ported to the fused "
                      "kernel: ROADMAP.md item 10")
-_UNSUPPORTED_HM = ("heightmap slots (K1c) are not ported to the fused kernel: "
-                   "ROADMAP.md item 11")
+_UNSUPPORTED_HM = ("cylinder, cone and mesh against the heightmap are not "
+                   "ported to the fused kernel: ROADMAP.md item 13")
+
+
+def _analyze_field(scene, field) -> _HmStatic:
+  """The field's static constants; FusedStepUnsupported where the JAX
+  package's `_analyze_field` raises: heights not (nx, ny) at build time, a
+  field-colliding geom not below a FREE root or below an unlimited prismatic
+  joint, and a field that no geom collides with."""
+  model = scene.model
+  tabs = scene.constraints or cs.EMPTY
+  if field.heights.ndim != 2:
+    raise FusedStepUnsupported("field.heights must be (nx, ny) at build time")
+  nx, ny = field.heights.shape
+  limited = {int(v) for v in tabs.limit_vadr}
+  hm_geom = scene.geoms.gtype.index(coll.GEOM_HEIGHTMAP)
+  colliding = False
+  for ia, ib in scene.pairs:
+    if hm_geom not in (ia, ib):
+      continue
+    colliding = True
+    b = scene.geoms.body[ia if ib == hm_geom else ib]
+    if b < 0:
+      raise FusedStepUnsupported("heightmap-colliding geom not attached below the FREE root")
+    while model.parent[b] >= 0:
+      if (JointType(model.joint_types[b]) == JointType.PRISMATIC
+          and int(model.v_adr[b]) not in limited):
+        raise FusedStepUnsupported("unlimited prismatic joint above a "
+                                   "heightmap-colliding geom (no static reach bound)")
+      b = int(model.parent[b])
+    if JointType(model.joint_types[b]) != JointType.FREE:
+      raise FusedStepUnsupported("heightmap-colliding geoms must descend from a FREE root")
+  if not colliding:
+    raise FusedStepUnsupported("heightmap present but no colliding pairs")
+  cx, cy = (float(c) for c in _host(field.center))
+  return _HmStatic(nx=nx, ny=ny, dx=float(field.size_x) / (nx - 1),
+                   dy=float(field.size_y) / (ny - 1), cx=cx, cy=cy,
+                   hx=0.5 * float(field.size_x), hy=0.5 * float(field.size_y))
 
 
 def _analyze(scene, config, use_pd: bool) -> _StaticData:
   """Concretize the scene to static kernel data; raise FusedStepUnsupported
-  for anything outside the kernel's scene class (K1a)."""
+  for anything outside the kernel's scene classes (K1a, K1c "hm_pt")."""
   model = scene.model
   for jt in model.joint_types:
     if JointType(jt) not in (JointType.FREE, JointType.REVOLUTE,
@@ -362,6 +426,8 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
     raise FusedStepUnsupported("wires, pins and compliant wires are not ported: "
                                "ROADMAP.md item 13")
   geoms = scene.geoms
+  field = getattr(scene, "field", None)
+  hm = _analyze_field(scene, field) if field is not None else None
   mats = _host(scene.materials)
   params = _host(geoms.params)
   opos = _host(geoms.offset_pos)
@@ -371,36 +437,40 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
   for ia, ib in scene.pairs:
     ta, tb = geoms.gtype[ia], geoms.gtype[ib]
     names = (coll.GEOM_NAMES.get(ta, ta), coll.GEOM_NAMES.get(tb, tb))
-    if coll.GEOM_HEIGHTMAP in (ta, tb):
-      raise FusedStepUnsupported(_UNSUPPORTED_HM)
-    if tb != coll.GEOM_PLANE:
+    if tb == coll.GEOM_HEIGHTMAP:
+      kind, h = "hm_pt", 0.0
+    elif tb == coll.GEOM_PLANE:
+      kind, h = "plane_pt", float(params[ib, 0])
+    else:
       raise FusedStepUnsupported(f"pair {names}: {_UNSUPPORTED_PAIR}")
     ba = geoms.body[ia]
     if ba < 0:
-      raise FusedStepUnsupported("static non-plane geom vs plane")
+      raise FusedStepUnsupported(f"static non-plane geom vs {names[1]}")
     mu, e, th = (float(x) for x in mats[geoms.material[ia], geoms.material[ib]])
     pa, oa, ra_ = params[ia], opos[ia], orot[ia]
-    h = float(params[ib, 0])
 
-    def plane_pt(local, radius):
-      slots.append(_Slot("plane_pt", ba, _np_v(local), float(radius), h, mu, e, th))
+    def point(local, radius):
+      slots.append(_Slot(kind, ba, _np_v(local), float(radius), h, mu, e, th))
 
+    # slot counts and order as collision's plane kernels and
+    # heightmap.collide_group
     if ta == coll.GEOM_SPHERE:
-      plane_pt(oa, pa[0])
+      point(oa, pa[0])
     elif ta == coll.GEOM_CAPSULE:
-      # two endpoint spheres at static body-local points, as
-      # collision._capsule_plane's two slots
+      # two endpoint spheres at static body-local points
       r_, hl = float(pa[0]), float(pa[1])
       for s_ in (-1.0, 1.0):
-        plane_pt(oa + ra_ @ np.array([0.0, 0.0, s_ * hl]), r_)
+        point(oa + ra_ @ np.array([0.0, 0.0, s_ * hl]), r_)
     elif ta == coll.GEOM_BOX:
       he = pa[:3]
       for sx in (-1.0, 1.0):
         for sy in (-1.0, 1.0):
           for sz in (-1.0, 1.0):
-            plane_pt(oa + ra_ @ (he * np.array([sx, sy, sz])), 0.0)
+            point(oa + ra_ @ (he * np.array([sx, sy, sz])), 0.0)
+    elif kind == "hm_pt" and ta in (coll.GEOM_CYLINDER, coll.GEOM_CONE, coll.GEOM_MESH):
+      raise FusedStepUnsupported(f"{names[0]} vs heightmap: {_UNSUPPORTED_HM}")
     else:
-      raise FusedStepUnsupported(f"geom type {names[0]} vs plane")
+      raise FusedStepUnsupported(f"geom type {names[0]} vs {names[1]}")
 
   limits = tuple(
       _Limit(int(v), int(q), float(lo), float(hi))
@@ -443,14 +513,14 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
       max_corr=float(config.max_correction_vel),
       sweeps=int(config.solver.sweeps), n_grid=int(config.solver.n_grid),
       slots=tuple(slots), limits=limits,
-      n_wrows=3 * len(slots) + len(limits))
+      n_wrows=3 * len(slots) + len(limits), hm=hm)
 
 
 # ---------------------------------------------------------------------------
 # Runtime values and the two back ends
 # ---------------------------------------------------------------------------
 
-_BOOL_OPS = (">", "<", "||")
+_BOOL_OPS = (">", "<", ">=", "<=", "||", "&&")
 
 
 class _Val:
@@ -495,18 +565,35 @@ class _Val:
   def __lt__(self, o):
     return self.k.bin("<", self, o)
 
+  def __ge__(self, o):
+    return self.k.bin(">=", self, o)
+
+  def __le__(self, o):
+    return self.k.bin("<=", self, o)
+
   def __or__(self, o):
     return self.k.bin("||", self, o)
+
+  def __and__(self, o):
+    return self.k.bin("&&", self, o)
+
+  def __invert__(self):
+    return self.k.not_(self)
 
 
 class _TorchOps:
   """The twin's back end: a value is a (B,) tensor, or a (B, n) slab of n
   right-hand columns (phase F) or n dofs (the z update of phase H). `ops`
-  counts operations per world: a slab operation counts n."""
+  counts operations per world: a slab operation counts n; `loads` counts the
+  height loads per world. `heights` is the (B, nx, ny) terrain of a
+  heightmap scene."""
 
-  def __init__(self, B: int, dtype, device):
+  def __init__(self, B: int, dtype, device, heights=None):
     self.B, self.dtype, self.device = B, dtype, device
+    self.heights = heights
+    self.worlds = torch.arange(B, device=device)
     self.ops = 0
+    self.loads = 0
 
   def t(self, v):
     """The tensor behind a value; a constant becomes a (B,) tensor."""
@@ -544,12 +631,40 @@ class _TorchOps:
       r = xa > xb
     elif op == "<":
       r = xa < xb
+    elif op == ">=":
+      r = xa >= xb
+    elif op == "<=":
+      r = xa <= xb
+    elif op == "&&":
+      r = xa & xb
     else:
       r = xa | xb
     return self._out(r)
 
   def neg(self, a):
     return self._out(-a.x)
+
+  def not_(self, a):
+    return self._out(~a.x)
+
+  def floor(self, a):
+    return self._out(torch.floor(self.t(a)))
+
+  def abs(self, a):
+    return self._out(torch.abs(self.t(a)))
+
+  def cell_index(self, i, j):
+    """The integer cell (i, j) of floored, clipped float indices (not an
+    operation of the tally). The clamp only matters for a NaN index, which
+    the kernel's fmaxf turns into 0."""
+    nx, ny = self.heights.shape[-2:]
+    return i.x.long().clamp(0, nx - 2), j.x.long().clamp(0, ny - 2)
+
+  def height(self, cell, di: int, dj: int):
+    """heights[b, i + di, j + dj] of each world b (a load, not an operation)."""
+    self.loads += 1
+    i, j = cell
+    return _Val(self, self.heights[self.worlds, i + di, j + dj].to(self.dtype))
 
   def sqrt(self, a):
     return self._out(torch.sqrt(self.t(a)))
@@ -665,14 +780,16 @@ class _CudaOps:
   count."""
 
   _FN = {"sqrt": "sqrtf", "rsqrt": "rsqrtf", "sin": "sinf", "cos": "cosf",
-         "maximum": "fmaxf", "minimum": "fminf"}
+         "maximum": "fmaxf", "minimum": "fminf", "floor": "floorf", "abs": "fabsf"}
 
-  def __init__(self):
+  def __init__(self, ny: int = 0):
     self.lines = []
     self.n = 0
     self.ops = 0
+    self.loads = 0
     self.mult = 1
     self.depth = 1
+    self.ny = ny                # heightmap row length: heights[i, j] at hts[i * ny + j]
 
   def emit(self, line: str):
     self.lines.append("  " * self.depth + line)
@@ -694,6 +811,29 @@ class _CudaOps:
 
   def neg(self, a):
     return self._def("float", f"-{self.e(a)}")
+
+  def not_(self, a):
+    return self._def("bool", f"!{self.e(a)}")
+
+  def cell_index(self, i, j):
+    """The flat index of cell (i, j), from floored, clipped float indices (not
+    an operation of the tally)."""
+    name = f"c{self.n}"
+    self.n += 1
+    self.emit(f"const int {name} = (int){self.e(i)} * {self.ny} + (int){self.e(j)};")
+    return name
+
+  def height(self, cell, di: int, dj: int):
+    """heights[i + di, j + dj] of this thread's world (a load, not an
+    operation)."""
+    self.loads += self.mult
+    return self._def("float", f"__ldg(hts + {cell} + {di * self.ny + dj})", count=False)
+
+  def floor(self, a):
+    return self._fn("floor", a)
+
+  def abs(self, a):
+    return self._fn("abs", a)
 
   def _fn(self, name, *args):
     return self._def("float", f"{self._FN[name]}({', '.join(self.e(a) for a in args)})")
@@ -1002,6 +1142,88 @@ def _tri_solve(x, L, invd):
     x[i] = acc * invd[i]
 
 
+def _emit_hm_probe(hm: _HmStatic, K, ca, r: float):
+  """heightmap._point_contact of the point ca (a sphere of static radius r;
+  r = 0 for a point) against this world's field. Returns (pos, normal,
+  depth, valid), valid a float 0/1.
+
+  The same sample order, gates and first-match best-candidate selection as
+  the full-field march; the heights of a sample's cell are loaded directly.
+  An x-march sample keeps the centre's j and v (its y is the centre's, so
+  they agree bitwise), a y-march sample its i and u. Every `jnp.where` is a
+  select over both branches, and in-bounds masks stay floats, as in the TPU
+  kernel."""
+  px, py, pz = ca
+
+  def axis(x, c, half, d, n):
+    """surface_at along one axis: (cell index, fraction, 0 <= f <= n - 1)."""
+    f = _add2(_sub(x, c), half) / d
+    i = K.minimum(K.maximum(K.floor(f), 0.0), n - 2.0)
+    w = K.minimum(K.maximum(f - i, 0.0), 1.0)
+    return i, w, (f >= 0.0) & (f <= n - 1.0)
+
+  def tri(i, j, uu, vv):
+    """surface_at's triangle plane of cell (i, j): height and unit normal."""
+    cell = K.cell_index(i, j)
+    h00, h10 = K.height(cell, 0, 0), K.height(cell, 1, 0)
+    h01, h11 = K.height(cell, 0, 1), K.height(cell, 1, 1)
+    lower = (uu + vv) <= 1.0
+    z_low = h00 + uu * (h10 - h00) + vv * (h01 - h00)
+    z_up = h11 + (1.0 - uu) * (h01 - h11) + (1.0 - vv) * (h10 - h11)
+    z = K.where(lower, z_low, z_up)
+    gx = K.where(lower, h10 - h00, h11 - h01) / hm.dx
+    gy = K.where(lower, h01 - h00, h11 - h10) / hm.dy
+    norm = K.sqrt(gx * gx + gy * gy + 1.0 + 1e-18)
+    return z, (-gx / norm, -gy / norm, 1.0 / norm)
+
+  i, u, in_x = axis(px, hm.cx, hm.hx, hm.dx, hm.nx)
+  j, v, in_y = axis(py, hm.cy, hm.hy, hm.dy, hm.ny)
+  z_c, n_c = tri(i, j, u, v)
+  depth = _sub(r, n_c[2] * (pz - z_c))
+  if r == 0.0:
+    return (px, py, pz), n_c, depth, K.to_float((depth > 0.0) & in_x & in_y)
+
+  best_d, best_n, best_in = depth, n_c, K.to_float(in_x & in_y)
+  for oxd, oyd in ((1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0)):
+    ndir = (-oxd, -oyd, 0.0)                       # wall normal: towards the centre
+    for f in (0.25, 0.5, 0.75, 1.0):
+      if oyd == 0.0:
+        qx, qy = px + oxd * (f * r), py
+        i_s, u_s, in_s = axis(qx, hm.cx, hm.hx, hm.dx, hm.nx)
+        z_k, n_k = tri(i_s, j, u_s, v)
+        in_k = K.to_float(in_s & in_y)
+      else:
+        qx, qy = px, py + oyd * (f * r)
+        j_s, v_s, in_s = axis(qy, hm.cy, hm.hy, hm.dy, hm.ny)
+        z_k, n_k = tri(i, j_s, u, v_s)
+        in_k = K.to_float(in_x & in_s)
+      d_k = _dot(n_k, _vsub((px, py, pz), (qx, qy, z_k)))
+      dep_plane = K.where(n_k[2] < 0.77, r - d_k, -1.0)
+      dep_wall = K.where(z_k > pz, r - f * r, -1.0)
+      use_plane = dep_plane >= dep_wall
+      dep_k = K.maximum(dep_plane, dep_wall)
+      n_cand = tuple(K.where(use_plane, n_k[a], ndir[a]) for a in range(3))
+      better = dep_k > best_d
+      best_d = K.where(better, dep_k, best_d)
+      best_n = tuple(K.where(better, n_cand[a], best_n[a]) for a in range(3))
+      best_in = K.where(better, in_k, best_in)
+  pos = _vsub((px, py, pz), _vscale(r, best_n))
+  return pos, best_n, best_d, K.to_float(best_d > 0.0) * best_in
+
+
+def _runtime_frame(K, n):
+  """(t1, t2) for a runtime unit normal n: pipeline._tangent_frames'
+  least-aligned-axis pick (ties go to x, then y), with rsqrt."""
+  ax = tuple(K.abs(c) for c in n)
+  pick_x = (ax[0] <= ax[1]) & (ax[0] <= ax[2])
+  pick_y = ~pick_x & (ax[1] <= ax[2])
+  fx, fy = K.to_float(pick_x), K.to_float(pick_y)
+  t1 = _cross(n, (fx, fy, 1.0 - fx - fy))
+  inv = K.rsqrt(_add(*[_mul(c, c) for c in t1]) + 1e-18)
+  t1 = _vscale(inv, t1)
+  return t1, _cross(n, t1)
+
+
 def _emit_step(sd: _StaticData, K, q, u, tau_in, pd_in):
   """Phases A-I for one world, on the values q (nq), u, tau_in, pd_in (nv;
   pd_in None without PD). Returns the lists (q', u')."""
@@ -1030,21 +1252,26 @@ def _emit_step(sd: _StaticData, K, q, u, tau_in, pd_in):
   M = _emit_crba(sd, EupL, rupL, Sbody, D_diag)
   L, invd = _emit_chol(K, nv, M)
 
-  # ---- E. contact rows (static plane frame t1=+y, t2=-x, n=+z, matching
-  #      pipeline._tangent_frames for n = z) and limit rows ----
+  # ---- E. contact rows and limit rows. Plane: the static frame t1=+y,
+  #      t2=-x, n=+z (pipeline._tangent_frames for n = z); heightmap: the
+  #      probe's normal and its runtime frame ----
   ncone = len(sd.slots)
   nlim = len(sd.limits)
   Jrows = [dict() for _ in range(3 * ncone + nlim)]   # row -> {dof: scalar}
   bias = [0.0] * (3 * ncone + nlim)
   act = [None] * (ncone + nlim)
-  t1, t2, nrm = (0.0, 1.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.0, 1.0)
   for s_i, slot in enumerate(sd.slots):
     ba = slot.body_a
     Ra, pa_ = _mT(E0[ba]), r0[ba]
     ca = _vadd(pa_, _mv(Ra, slot.local))         # feature point / centre, world
-    depth = _sub(slot.plane_h + slot.radius, ca[2])
-    pos = (ca[0], ca[1], _sub(ca[2], slot.radius))
-    act[s_i] = K.to_float(depth > 0.0)
+    if slot.kind == "plane_pt":
+      depth = _sub(slot.plane_h + slot.radius, ca[2])
+      pos = (ca[0], ca[1], _sub(ca[2], slot.radius))
+      t1, t2, nrm = (0.0, 1.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.0, 1.0)
+      act[s_i] = K.to_float(depth > 0.0)
+    else:                                        # "hm_pt"
+      pos, nrm, depth, act[s_i] = _emit_hm_probe(sd.hm, K, ca, slot.radius)
+      t1, t2 = _runtime_frame(K, nrm)
     r_t1, r_t2, r_n = 3 * s_i, 3 * s_i + 1, 3 * s_i + 2
     vn_pre = 0.0
     for j in sd.anc_dofs[ba]:
@@ -1188,11 +1415,15 @@ def _emit_step(sd: _StaticData, K, q, u, tau_in, pd_in):
 # ---------------------------------------------------------------------------
 
 
-def _fused_plain(sd: _StaticData, q, u, tau, pd=None, return_ops: bool = False):
+def _fused_plain(sd: _StaticData, q, u, tau, pd=None, heights=None,
+                 return_ops: bool = False):
   """The kernel's arithmetic in plain PyTorch: q (B, nq), u, tau, pd (B, nv)
-  on any device, in their dtype. Returns (q', u') (and the per-world
-  operation tally if `return_ops`)."""
-  K = _TorchOps(q.shape[0], q.dtype, q.device)
+  and, on a heightmap scene, heights (B, nx, ny) on any device, in their
+  dtype. Returns (q', u') (and the per-world operation tally if
+  `return_ops`)."""
+  if (heights is None) != (sd.hm is None):
+    raise ValueError("heights are needed exactly for a heightmap scene")
+  K = _TorchOps(q.shape[0], q.dtype, q.device, heights)
   cols = lambda x, n: [_Val(K, x[:, k]) for k in range(n)]   # noqa: E731
   pd_v = cols(pd, sd.nv) if sd.use_pd else None
   q_new, u_new = _emit_step(sd, K, cols(q, sd.nq), cols(u, sd.nv),
@@ -1219,6 +1450,7 @@ _SOURCE_HEAD = """\
 #define FS_NQ {nq}
 #define FS_NV {nv}
 #define FS_USE_PD {use_pd}
+#define FS_HAS_HM {has_hm}
 
 namespace {{
 
@@ -1226,6 +1458,7 @@ __device__ __forceinline__ void fs_body(const float* __restrict__ q,
                                         const float* __restrict__ u,
                                         const float* __restrict__ tau,
                                         const float* __restrict__ pd,
+                                        const float* __restrict__ hts,
                                         float* __restrict__ qo,
                                         float* __restrict__ uo) {{
 """
@@ -1240,9 +1473,10 @@ _SOURCE_TAIL = """\
 
 
 def kernel_source(sd: _StaticData):
-  """The CUDA source of the fused step for `sd`, and its operation tally per
-  world. Deterministic: the same static data gives the same text."""
-  K = _CudaOps()
+  """The CUDA source of the fused step for `sd`, its operation tally per
+  world and its height loads per world. Deterministic: the same static data
+  gives the same text."""
+  K = _CudaOps(sd.hm.ny if sd.hm is not None else 0)
   dth = 2.0 * math.pi / sd.n_grid
   K.emit(f"const rsl::ConeConsts cc = {{{sd.n_grid}, {_lit(dth)}, {_lit(0.5 * dth)}, "
          f"{_lit(0.125 * dth)}, {_lit(dth / 16.0)}}};")
@@ -1261,19 +1495,22 @@ def kernel_source(sd: _StaticData):
     K.emit(f"qo[{k}] = {K.e(x)};")
   for k, x in enumerate(u_new):
     K.emit(f"uo[{k}] = {K.e(x)};")
+  kinds = sorted({s.kind for s in sd.slots})
   summary = (f"nb = {sd.nb}, nq = {sd.nq}, nv = {sd.nv}, {len(sd.slots)} contact "
-             f"slots, {len(sd.limits)} limit rows, {sd.sweeps} sweeps: "
-             f"{K.ops} operations per world.")
+             f"slots ({', '.join(kinds) or 'none'}), {len(sd.limits)} limit rows, "
+             f"{sd.sweeps} sweeps: {K.ops} operations and {K.loads} height loads "
+             f"per world.")
   head = _SOURCE_HEAD.format(summary=summary, nq=sd.nq, nv=sd.nv,
-                             use_pd=int(sd.use_pd))
-  return head + "\n".join(K.lines) + "\n" + _SOURCE_TAIL, K.ops
+                             use_pd=int(sd.use_pd), has_hm=int(sd.hm is not None))
+  return head + "\n".join(K.lines) + "\n" + _SOURCE_TAIL, K.ops, K.loads
 
 
 # ---------------------------------------------------------------------------
 # The kernel and the public wrapper
 # ---------------------------------------------------------------------------
 
-_SYMBOLS = {"fused_step_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]}
+_SYMBOLS = {"fused_step_launch": [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]}
 
 
 class FusedKernel:
@@ -1283,31 +1520,45 @@ class FusedKernel:
 
   def __init__(self, sd: _StaticData):
     self.sd = sd
-    self.source, self.ops_per_world = kernel_source(sd)
+    self.source, self.ops_per_world, self.loads_per_world = kernel_source(sd)
     self.name = _build.add_generated("fused_step", self.source, _SYMBOLS)
 
-  def launch(self, q, u, tau, pd):
-    """(q', u') for float32 CUDA tensors q (B, nq), u, tau, pd (B, nv)."""
+  def launch(self, q, u, tau, pd, heights=None):
+    """(q', u') for float32 CUDA tensors q (B, nq), u, tau, pd (B, nv) and,
+    on a heightmap scene, heights (B, nx, ny). A heights tensor whose world
+    stride is 0 (`field.heights.expand(B, nx, ny)`) is read without a copy."""
     sd = self.sd
     B = q.shape[0]
-    ins = {"q": (q, sd.nq), "u": (u, sd.nv), "tau": (tau, sd.nv)}
+    ins = {"q": (q, (B, sd.nq)), "u": (u, (B, sd.nv)), "tau": (tau, (B, sd.nv))}
     if sd.use_pd:
-      ins["pd"] = (pd, sd.nv)
-    for name, (x, n) in ins.items():
+      ins["pd"] = (pd, (B, sd.nv))
+    if sd.hm is not None:
+      ins["heights"] = (heights, (B, sd.hm.nx, sd.hm.ny))
+    elif heights is not None:
+      raise ValueError("heights given to the kernel of a scene without a heightmap")
+    for name, (x, shape) in ins.items():
+      if x is None:
+        raise ValueError(f"{name} is missing")
       if not x.is_cuda or x.device != q.device:
         raise ValueError(f"{name} is on {x.device}, q on {q.device}")
       if x.dtype != torch.float32:
         raise TypeError(f"the fused CUDA step takes float32 only; {name} is {x.dtype}")
-      if tuple(x.shape) != (B, n):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {(B, n)}")
+      if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     q, u, tau = q.contiguous(), u.contiguous(), tau.contiguous()
     pd = pd.contiguous() if sd.use_pd else None
+    hts, stride = None, 0
+    if sd.hm is not None:
+      field = sd.hm.nx * sd.hm.ny
+      if heights.stride()[1:] != (sd.hm.ny, 1) or heights.stride(0) not in (0, field):
+        heights = heights.contiguous()
+      hts, stride = heights.data_ptr(), heights.stride(0)
     qo = torch.empty_like(q)
     uo = torch.empty_like(u)
     lib = _build.load(self.name)
     rc = lib.fused_step_launch(q.data_ptr(), u.data_ptr(), tau.data_ptr(),
                                pd.data_ptr() if pd is not None else None,
-                               qo.data_ptr(), uo.data_ptr(), B,
+                               hts, stride, qo.data_ptr(), uo.data_ptr(), B,
                                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
       raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
@@ -1318,12 +1569,12 @@ class FusedKernel:
 class _FusedFn(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, q, u, tau, pd, step):
+  def forward(ctx, q, u, tau, pd, heights, step):
     ctx.step = step
-    ctx.save_for_backward(q, u, tau, pd)
+    ctx.save_for_backward(q, u, tau, pd, heights)
     if q.is_cuda:
-      return step.kernel.launch(q, u, tau, pd)
-    return _fused_plain(step.sd, q, u, tau, pd)
+      return step.kernel.launch(q, u, tau, pd, heights)
+    return _fused_plain(step.sd, q, u, tau, pd, heights)
 
   @staticmethod
   def backward(ctx, dq, du):
@@ -1331,18 +1582,19 @@ class _FusedFn(torch.autograd.Function):
     inputs = [None if x is None else x.detach().requires_grad_(need)
               for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
     diff = [x for x in inputs if x is not None and x.requires_grad]
-    q, u, tau, pd = inputs
+    q, u, tau, pd, heights = inputs
     with torch.enable_grad():
       s = pipeline.step_batch(step.scene, State(q=q, u=u, t=torch.zeros_like(q[:, 0])),
-                              tau, pd, step.config)
+                              tau, pd, step.config, field_heights=heights)
       grads = iter(torch.autograd.grad((s.q, s.u), diff, (dq, du), allow_unused=True))
     return tuple(next(grads) if x is not None and x.requires_grad else None
                  for x in inputs) + (None,)
 
 
 class FusedStep:
-  """step(state, tau, pd_target=None) -> State: one physics step of a batch
-  of worlds, as pipeline.step_batch computes it (see make_step_batch_fused)."""
+  """step(state, tau, pd_target=None, field_heights=None) -> State: one
+  physics step of a batch of worlds, as pipeline.step_batch computes it (see
+  make_step_batch_fused)."""
 
   def __init__(self, scene, config, use_pd: bool):
     self.scene, self.config, self.use_pd = scene, config, use_pd
@@ -1356,24 +1608,42 @@ class FusedStep:
       self._kernel = FusedKernel(self.sd)
     return self._kernel
 
-  def __call__(self, state: State, tau, pd_target=None) -> State:
+  def heights(self, q, field_heights=None):
+    """The (B, nx, ny) heights a step of the batch q reads: `field_heights`
+    (checked by pipeline.scene_field), or the scene's field for every world
+    (expanded, not copied); None for a scene without a heightmap."""
+    field = pipeline.scene_field(self.scene, field_heights, q.device)
+    if field is None:
+      return None
+    B = q.shape[0]
+    if field_heights is None:
+      return field.heights.expand((B,) + field.shape)
+    if field_heights.shape[0] != B:
+      raise ValueError(f"field_heights holds {field_heights.shape[0]} worlds, the state {B}")
+    return field_heights
+
+  def __call__(self, state: State, tau, pd_target=None, field_heights=None) -> State:
     pd = pd_target if self.use_pd else None
     if self.use_pd and pd is None:
       raise ValueError("this fused step was built with use_pd=True: pass pd_target")
-    q, u = _FusedFn.apply(state.q, state.u, tau, pd, self)
+    hts = self.heights(state.q, field_heights)
+    q, u = _FusedFn.apply(state.q, state.u, tau, pd, hts, self)
     return State(q=q, u=u, t=state.t + self.sd.dt)
 
 
 def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
-  """Fused replacement for pipeline.step_batch on eligible scenes (K1a).
+  """Fused replacement for pipeline.step_batch on eligible scenes (K1a on a
+  plane, K1c on a heightmap).
 
-  Returns step(state, tau, pd_target) -> State (pd_target ignored when
-  use_pd=False). CUDA tensors (float32) launch the generated kernel and
-  count one launch in `make_step_batch_fused.launches`; CPU tensors run the
-  twin `_fused_plain`. Gradients differentiate pipeline.step_batch (whose
-  contact solve's backward runs `_mf_pure`), the forward/backward split of
-  the JAX package's custom VJP. Raises FusedStepUnsupported for scenes
-  outside the kernel's class."""
+  Returns step(state, tau, pd_target, field_heights=None) -> State
+  (pd_target ignored when use_pd=False). On a heightmap scene
+  `field_heights` (B, nx, ny) gives each world its own terrain; None uses
+  the scene's field for every world. CUDA tensors (float32) launch the
+  generated kernel and count one launch in `make_step_batch_fused.launches`;
+  CPU tensors run the twin `_fused_plain`. Gradients differentiate
+  pipeline.step_batch with the same heights (its contact solve's backward
+  runs `_mf_pure`), the forward/backward split of the JAX package's custom
+  VJP. Raises FusedStepUnsupported for scenes outside the kernel's classes."""
   config = config if config is not None else pipeline.StepConfig()
   return FusedStep(scene, config, use_pd)
 
@@ -1381,10 +1651,13 @@ def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
 make_step_batch_fused.launches = 0
 
 
-def fused_step_cost(sd: _StaticData, B: int, ops_per_world: int):
+def fused_step_cost(sd: _StaticData, B: int, ops_per_world: int,
+                    loads_per_world: int = 0):
   """(bytes, operations) of one fused step of B worlds, for its bound: each
   float32 input (q, u, tau and pd when used) read once and each output
-  (q', u') written once; the operations the kernel's source runs per world
-  (its own tally) times B."""
+  (q', u') written once; on a heightmap, the `loads_per_world` heights each
+  world's probes load from its own field (fewer distinct bytes where
+  samples share a cell; either way far below the operations' time); the
+  operations the kernel's source runs per world (its own tally) times B."""
   n_in = sd.nq + 2 * sd.nv + (sd.nv if sd.use_pd else 0)
-  return 4 * B * (n_in + sd.nq + sd.nv), B * ops_per_world
+  return 4 * B * (n_in + sd.nq + sd.nv + loads_per_world), B * ops_per_world

@@ -11,7 +11,10 @@ Counterpart of raisimlib_tpu/ops/pipeline.py:
 
 Every function here takes a leading batch dimension B of worlds (the JAX
 package's single-world functions under `vmap`). Restitution and Baumgarte
-stabilisation enter as a normal-velocity bias.
+stabilisation enter as a normal-velocity bias. On a scene with a heightmap,
+`field_heights` (B, nx, ny) gives each world its own terrain heights (the JAX
+package's `scene.replace(field=...)` under `vmap`); None uses the scene's
+field for every world.
 """
 
 from __future__ import annotations
@@ -87,8 +90,25 @@ def _mv(A, x):
   return (A @ x.unsqueeze(-1)).squeeze(-1)
 
 
+def scene_field(scene, field_heights=None, device=None):
+  """The scene's heightfield, with per-world heights (B, nx, ny) swapped in
+  when given; None for a scene without one. Raises for heights that a scene
+  without a field, or of another grid or device, is given."""
+  field = getattr(scene, "field", None)
+  if field_heights is None:
+    return field
+  if field is None:
+    raise ValueError("field_heights given for a scene without a heightmap")
+  if field_heights.ndim != 3 or tuple(field_heights.shape[1:]) != field.shape:
+    raise ValueError(f"field_heights has shape {tuple(field_heights.shape)}, expected "
+                     f"(B, {field.shape[0]}, {field.shape[1]})")
+  if device is not None and field_heights.device != device:
+    raise ValueError(f"field_heights is on {field_heights.device}, the state on {device}")
+  return field.replace(heights=field_heights)
+
+
 def _assemble_rows(scene, state: State, tau, pd_target=None,
-                   config: StepConfig = StepConfig()):
+                   config: StepConfig = StepConfig(), field_heights=None):
   """Collision -> solver-row assembly, shared by the step paths.
 
   Returns (Jr, bias, mu, active, M, rhs0):
@@ -112,7 +132,8 @@ def _assemble_rows(scene, state: State, tau, pd_target=None,
   tau = torch.minimum(torch.maximum(tau, -model.torque_limit), model.torque_limit)
 
   kin = dynamics.fk(model, q, u)
-  contacts = coll.collide(scene.geoms, scene.pairs, kin)
+  contacts = coll.collide(scene.geoms, scene.pairs, kin,
+                          scene_field(scene, field_heights, dev))
   tabs = scene.constraints or cs.EMPTY
   if tabs.compliant:
     raise cs._unported("compliant wires")
@@ -147,11 +168,12 @@ def _assemble_rows(scene, state: State, tau, pd_target=None,
 
 
 def _pre_solve(scene, state: State, tau, pd_target=None,
-               config: StepConfig = StepConfig()):
+               config: StepConfig = StepConfig(), field_heights=None):
   """Everything up to the contact solve, with the Delassus G formed by one
   fused (1 + 3 n_rows)-column cho_solve: the reference step's path."""
   nv, dt = scene.model.nv, scene.dt
-  Jr, bias, mu, active, M, rhs0 = _assemble_rows(scene, state, tau, pd_target, config)
+  Jr, bias, mu, active, M, rhs0 = _assemble_rows(scene, state, tau, pd_target, config,
+                                                 field_heights)
   B, nr = Jr.shape[:2]
   L = linalg.chol(M)
   Jf = Jr.reshape(B, nr * 3, nv)
@@ -179,16 +201,16 @@ def _post_solve(scene, state: State, ctx, lam) -> State:
 
 
 def step(scene, state: State, tau, pd_target=None,
-         config: StepConfig = StepConfig()) -> State:
+         config: StepConfig = StepConfig(), field_heights=None) -> State:
   """Reference step: forms G and runs the Gauss-Seidel cone solve."""
-  solver_in, ctx = _pre_solve(scene, state, tau, pd_target, config)
+  solver_in, ctx = _pre_solve(scene, state, tau, pd_target, config, field_heights)
   G, c0, mu, active = solver_in
   lam = ct.solve_contacts(G, c0, mu, active, config=config.solver)
   return _post_solve(scene, state, ctx, lam)
 
 
 def solver_inputs(scene, state: State, tau, pd_target=None,
-                  config: StepConfig = StepConfig()):
+                  config: StepConfig = StepConfig(), field_heights=None):
   """The factors the batched solve consumes, and its config with the row kinds.
 
   Returns ((Jr, Wt, vf, bias, mu, active), solver_config): Wt = J M^-1 is
@@ -196,7 +218,8 @@ def solver_inputs(scene, state: State, tau, pd_target=None,
   vf = u + dt M^-1 rhs0 is the free velocity."""
   model, dt = scene.model, scene.dt
   nv = model.nv
-  Jr, bias, mu, active, M, rhs0 = _assemble_rows(scene, state, tau, pd_target, config)
+  Jr, bias, mu, active, M, rhs0 = _assemble_rows(scene, state, tau, pd_target, config,
+                                                 field_heights)
   L = linalg.chol(M)
   invL = linalg.solve_lower(L, torch.eye(nv, dtype=M.dtype, device=M.device))
   invLt = invL.transpose(-1, -2)
@@ -221,11 +244,7 @@ def step_batch(scene, state: State, tau, pd_target=None,
   `use_kernel=True` runs ops/gpu_contact.solve_dynamics_batch (the CUDA
   kernel on the card, its plain twin on the CPU); `use_kernel=False` runs the
   differentiable reference `_mf_pure`."""
-  if field_heights is not None:
-    raise NotImplementedError(
-        "heightmap terrain is not ported to raisimlib_torch yet: ROADMAP.md, "
-        "'Heightmap and trot'")
-  args, solver_cfg = solver_inputs(scene, state, tau, pd_target, config)
+  args, solver_cfg = solver_inputs(scene, state, tau, pd_target, config, field_heights)
   solve = gpu_contact.solve_dynamics_batch if use_kernel else gpu_contact._mf_pure
   u_new, _ = solve(*args, solver_cfg)
   q_new = dynamics.integrate_q(scene.model, state.q, u_new, scene.dt)

@@ -62,7 +62,9 @@ def quat_mul(q1, q2):
 
 
 def quat_conj(q):
-  return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+  # negation, not a product with a host-made sign vector, whose copy to the
+  # card would synchronise every call
+  return torch.cat([q[..., :1], -q[..., 1:]], -1)
 
 
 def quat_normalize(q, eps=1e-12):

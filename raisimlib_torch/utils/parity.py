@@ -1,4 +1,4 @@
-"""The torque-parity gate against the frozen ANYmal balance golden.
+"""The torque-parity gates against the frozen ANYmal goldens.
 
 tests/goldens/anymal_balance.npz holds 50 f64 reference steps from a settled
 stance under a lateral push and sinusoidal knee targets (kp = 100, kd = 2).
@@ -13,6 +13,17 @@ flips, and the JAX package's own kernel path shows the same deviation as the
 port's (f32: 4.128 N m at the flip, 4.5e-3 on q; f64: 0.085 N m, 5.6e-4). So
 the batched gate is two-part: the first BATCH_TIGHT_STEPS steps hold the
 reference gate, and the whole window stays under the measured ceiling.
+
+tests/goldens/anymal_trot_heightmap.npz holds 80 f64 reference steps of an
+open-loop trot segment on a procedural heightfield (kp = 120, kd = 3): feet
+lift off and touch down inside the window, so a float32 rounding can move a
+touchdown by one step, and the JAX package's gate (tests/test_parity.py,
+TestAnymalTrotHeightmap) is two-sided: >= 95% of applied-torque entries
+within 1e-3 N m, none above 0.5 N m. The trot gate holds every step path.
+The batched paths do not part from the reference in this window, unlike
+the balance golden's: the port's K2 twin in float32 on the CPU stays within
+1.8e-5 N m over all 80 steps, the reference step within 1.7e-5
+(tools/trot_golden_gate.py).
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ Q_GATE = 1e-4
 BATCH_TIGHT_STEPS = 15    # before the kernel's slip search parts from Newton's
 BATCH_TORQUE_CEILING = 5.0    # N m over the window (measured 4.128, f32)
 BATCH_Q_CEILING = 1e-2        # (measured 4.5e-3, f32)
+TROT_TIGHT_FRACTION = 0.95    # of applied-torque entries within TORQUE_GATE
+TROT_TORQUE_CEILING = 0.5     # N m, 1.25% of the 40 N m actuator limit
 
 
 def applied_torques(qs, us, q0, tgts, kp, kd, limit=40.0):
@@ -76,4 +89,29 @@ def batch_gate_failures(qs, us, g):
     out.append(f"max|dtau| = {dtau.max():.3e} > {BATCH_TORQUE_CEILING}")
   if dq.max() > BATCH_Q_CEILING:
     out.append(f"max|dq| = {dq.max():.3e} > {BATCH_Q_CEILING}")
+  return out
+
+
+def trot_deviation(qs, us, g):
+  """|applied torque - the golden's| (T, 12) over the first T = len(qs)
+  steps of the trot golden."""
+  T = len(qs)
+  kp, kd, lim = float(g["kp"]), float(g["kd"]), float(g["torque_limit"])
+  tgts = np.asarray(g["pd_targets"])[:T]
+  ours = applied_torques(np.asarray(qs, np.float64), np.asarray(us, np.float64),
+                         g["q0"], tgts, kp, kd, lim)
+  ref = applied_torques(np.asarray(g["q"])[:T], np.asarray(g["u"])[:T], g["q0"], tgts,
+                        kp, kd, lim)
+  return np.abs(ours - ref)
+
+
+def trot_gate_failures(qs, us, g):
+  """Messages for every breach of the trot gate (empty = pass)."""
+  d = trot_deviation(qs, us, g)
+  frac = float((d <= TORQUE_GATE).mean())
+  out = []
+  if frac < TROT_TIGHT_FRACTION:
+    out.append(f"only {frac:.1%} of applied-torque entries within {TORQUE_GATE} N m")
+  if d.max() > TROT_TORQUE_CEILING:
+    out.append(f"max|dtau| = {d.max():.3e} > {TROT_TORQUE_CEILING} N m")
   return out

@@ -3,14 +3,18 @@
 Counterpart of the main-path part of raisimlib_tpu/world.py. `World.add_*`
 calls accumulate object specs on the host; `World.compile()` merges them into
 one forest `RobotModel` plus static geometry tables on the world's device and
-returns a `Scene`, whose `step` / `step_batch` advance states. The other
-`add_*` objects, wires, pins and heightmaps are not ported yet (ROADMAP.md).
+returns a `Scene`, whose `step` / `step_batch` advance states. A world holds
+at most one heightmap (`add_heightmap`); the compiled Scene carries it as
+`Scene.field`, and `Scene.replace(field=scene.field.replace(heights=h))`
+swaps in other heights. The other `add_*` objects, wires and pins are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+import warnings
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from raisimlib_torch.models.model import RobotModel, build_model, joint_nq, join
 from raisimlib_torch.ops import collision as coll
 from raisimlib_torch.ops import constraints as cs
 from raisimlib_torch.ops import integrator
+from raisimlib_torch.ops.heightmap import HeightField
 from raisimlib_torch.ops.integrator import State
 
 
@@ -51,6 +56,7 @@ class World:
     self._handles: List[ObjectHandle] = []
     self._materials: List[tuple] = [(0.8, 0.0, 0.001)]  # (mu, restitution, threshold)
     self._pair_props: dict = {}
+    self._field: Optional[HeightField] = None
     self._nq = 0
     self._nv = 0
 
@@ -111,6 +117,40 @@ class World:
                                      np.array([height, 0.0, 0.0, 0.0]),
                                      np.zeros(3), np.eye(3), material))
 
+  def add_heightmap(self, field: HeightField, material: int = 0) -> None:
+    """Add a heightfield terrain (RaiSim `World::addHeightMap`); at most one
+    per world. Its heights and centre move to the world's device and dtype.
+
+    Tunneling guard: the narrow phase has no continuous collision detection.
+    A near-vertical face (a stairs riser) is a one-cell band, and a body that
+    crosses it in one step passes through. If some adjacent samples rise
+    more than 45 degrees, this warns with the speed above which that can
+    happen (one cell per step)."""
+    if self._field is not None:
+      raise ValueError("a world holds one heightmap")
+    H = np.asarray(torch.as_tensor(field.heights).detach().cpu(), dtype=np.float64)
+    if H.ndim != 2 or min(H.shape) < 2:
+      raise ValueError(f"heightmap heights must be (nx, ny) with nx, ny >= 2, "
+                       f"got {H.shape}")
+    dx = float(field.size_x) / (H.shape[0] - 1)
+    dy = float(field.size_y) / (H.shape[1] - 1)
+    grade = max(float(np.abs(np.diff(H, axis=0)).max()) / dx,
+                float(np.abs(np.diff(H, axis=1)).max()) / dy)
+    if grade > 1.0:
+      v_max = min(dx, dy) / self.dt
+      warnings.warn(
+          f"heightmap contains near-vertical faces (max cell slope {grade:.1f}); "
+          f"there is no continuous collision detection, so bodies moving faster "
+          f"than ~{v_max:.1f} m/s (one cell of {min(dx, dy):.3f} m per dt={self.dt} s "
+          f"step) can TUNNEL through a riser. Keep speeds below that bound, "
+          f"reduce dt, or refine the grid.", stacklevel=2)
+    self._field = HeightField(
+        heights=torch.as_tensor(field.heights, dtype=self.dtype, device=self.device),
+        center=torch.as_tensor(field.center, dtype=self.dtype, device=self.device),
+        size_x=float(field.size_x), size_y=float(field.size_y))
+    self._geoms.append(coll.GeomSpec(-1, coll.GEOM_HEIGHTMAP, np.zeros(4),
+                                     np.zeros(3), np.eye(3), material))
+
   # -- compile --------------------------------------------------------------
   def compile(self, joint_limits: bool = True) -> "Scene":
     """Freeze to a Scene on the world's device. `joint_limits=True` adds one
@@ -131,6 +171,7 @@ class World:
         kp=torch.zeros(model.nv, dtype=dtype, device=dev),
         kd=torch.zeros(model.nv, dtype=dtype, device=dev),
         constraints=cs.build_tables(model, joint_limits),
+        field=self._field,
         objects=tuple((h.name, h.q_slice.start, h.q_slice.stop, h.v_slice.start,
                        h.v_slice.stop, h.body_start) for h in self._handles))
 
@@ -148,11 +189,17 @@ class Scene:
   kp: torch.Tensor            # (nv,) PD stiffness (0 disables)
   kd: torch.Tensor            # (nv,) PD damping
   constraints: cs.ConstraintTables = cs.EMPTY
+  field: Optional[HeightField] = None   # the heightmap terrain, if any
   objects: tuple = ()         # (name, q0, q1, v0, v1, body_start) per object
 
   @property
   def device(self) -> torch.device:
     return self.model.device
+
+  def replace(self, **changes) -> "Scene":
+    """A copy with fields replaced, e.g. other terrain heights:
+    `scene.replace(field=scene.field.replace(heights=h))`."""
+    return dataclasses.replace(self, **changes)
 
   def init_state(self, q=None, u=None) -> State:
     return integrator.init_state(self.model, q, u)
@@ -184,7 +231,8 @@ class Scene:
   def step_batch(self, state: State, tau=None, pd_target=None,
                  field_heights=None) -> State:
     """Batched step (leading batch axis on state / tau / pd_target) whose
-    contact solve is the CUDA kernel on the card."""
+    contact solve is the CUDA kernel on the card. `field_heights` (B, nx, ny)
+    gives each world its own terrain heights (default: the scene's field)."""
     from raisimlib_torch.ops import pipeline
 
     if tau is None:

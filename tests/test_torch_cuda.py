@@ -1,5 +1,6 @@
 """Tests that need the card: the hand-written CUDA kernels (K2, and the fused
-step K1) against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX is not needed,
+step K1 on the plane and on a heightmap) against their plain PyTorch twins
+on the GPU. They skip without a CUDA device. JAX is not needed,
 so on the GPU machine they run without the JAX test configuration:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -70,3 +71,49 @@ def test_fused_step_kernel_matches_plain_twin():
   du = (sk.u - up).abs().amax(1).cpu().numpy()
   assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
   assert dq.max() <= 5e-4 and du.max() <= 5e-3
+
+
+@pytest.mark.cuda
+def test_terrain_fused_step_kernel_matches_plain_twin():
+  """K1c (ANYmal on the trot golden's heightmap) against `_fused_plain` on
+  the card, at B = 1037, each world on its own terrain (the golden's heights
+  plus 2 cm of noise), and once more with every world on the scene's field
+  (heights expanded, world stride 0). The tiers of the plane case."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  import numpy as np
+
+  from raisimlib_torch.models import anymal
+  from raisimlib_torch.models.urdf import load_urdf
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops.integrator import State
+  from raisimlib_torch.utils import terrain
+  from raisimlib_torch.world import World
+
+  g = load_golden("anymal_trot_heightmap.npz")
+  bodies, geoms, _ = load_urdf(anymal.anymal_urdf())
+  world = World(dt=float(g["dt"]), dtype=torch.float32, device="cuda")
+  world.add_articulated_system(bodies, name="anymal", geoms=geoms)
+  world.add_heightmap(terrain.flat(0.0, size=(12.0, 6.0), samples=(48, 24), device="cuda"))
+  scene = world.compile().set_pd_gains(float(g["kp"]), float(g["kd"]))
+  scene = scene.replace(field=scene.field.replace(
+      heights=torch.tensor(g["heights"], dtype=torch.float32, device="cuda")))
+  step = gpu_step.make_step_batch_fused(scene)
+  B = 1037
+  f32 = dict(dtype=torch.float32, device="cuda")
+  q, u = perturbed_states(g, B, seed=12)
+  hts = g["heights"][None] + 0.02 * np.random.RandomState(12).randn(B, 48, 24)
+  pd = torch.tensor(np.tile(g["pd_targets"][0], (B, 1)), **f32)
+  tau = torch.zeros_like(pd)
+  s = State(q=torch.tensor(q, **f32), u=torch.tensor(u, **f32), t=torch.zeros(B, **f32))
+  for h in (torch.tensor(hts, **f32), None):
+    n0 = gpu_step.make_step_batch_fused.launches
+    with torch.inference_mode():
+      sk = step(s, tau, pd, field_heights=h)
+      qp, up = gpu_step._fused_plain(step.sd, s.q, s.u, tau, pd, step.heights(s.q, h))
+    torch.cuda.synchronize()
+    assert gpu_step.make_step_batch_fused.launches == n0 + 1
+    dq = (sk.q - qp).abs().amax(1).cpu().numpy()
+    du = (sk.u - up).abs().amax(1).cpu().numpy()
+    assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
+    assert dq.max() <= 5e-4 and du.max() <= 5e-3

@@ -10,7 +10,8 @@ make_step_batch_fused on CPU tensors, against the JAX package.
     path (f64, same cone algorithm).
   * Gradients, the fused modes of make_contact_dyn_batch, and the generated
     CUDA source: deterministic, float32 literals, the twin's operation
-    tally, and its body, compiled as host C++, against the twin.
+    tally, and its body, compiled as host C++, against the twin; the last
+    two also for ANYmal on a heightmap (K1c).
 
 JAX scenes cross over through convert.scene_from_numpy."""
 
@@ -331,8 +332,8 @@ def anymal_sd():
 def test_kernel_source_is_deterministic_float32(anymal_sd):
   from raisimlib_torch.ops import gpu_step
 
-  src, ops = gpu_step.kernel_source(anymal_sd)
-  assert (src, ops) == gpu_step.kernel_source(anymal_sd)
+  src, ops, loads = gpu_step.kernel_source(anymal_sd)
+  assert (src, ops, loads) == gpu_step.kernel_source(anymal_sd) and loads == 0
   body = src.split("fs_body(", 1)[1]
   # every floating literal carries the f suffix: a bare double literal would
   # promote its whole expression to double
@@ -350,7 +351,7 @@ def test_kernel_tally_equals_twin(anymal_sd):
   from this tally."""
   from raisimlib_torch.ops import gpu_step
 
-  _, ops = gpu_step.kernel_source(anymal_sd)
+  _, ops, _ = gpu_step.kernel_source(anymal_sd)
   z = lambda n: torch.zeros((1, n))   # noqa: E731
   q = torch.tensor(load_golden()["q0"][None], dtype=torch.float32)
   with torch.inference_mode():
@@ -369,31 +370,66 @@ def test_launch_refuses_cpu_tensors(anymal_sd):
     kern.launch(torch.zeros((2, 19)), x, x, x)
 
 
+@pytest.fixture(scope="module")
+def trot_sd():
+  """ANYmal over the trot golden's heightmap (K1c: 12 "hm_pt" slots), f32."""
+  from raisimlib_torch.models import anymal
+  from raisimlib_torch.models.urdf import load_urdf
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops import pipeline as tp
+  from raisimlib_torch.utils import terrain
+  from raisimlib_torch.world import World
+
+  g = load_golden("anymal_trot_heightmap.npz")
+  bodies, geoms, _ = load_urdf(anymal.anymal_urdf())
+  world = World(dt=float(g["dt"]), dtype=torch.float32, device="cpu")
+  world.add_articulated_system(bodies, name="anymal", geoms=geoms)
+  world.add_heightmap(terrain.flat(0.0, size=(12.0, 6.0), samples=(48, 24), device="cpu"))
+  scene = world.compile().set_pd_gains(float(g["kp"]), float(g["kd"]))
+  return gpu_step._analyze(scene, tp.StepConfig(), True), g
+
+
+def test_terrain_kernel_tally_equals_twin(trot_sd):
+  """K1c's source and its twin tally the same operations and height loads
+  per world: 4 foot spheres x 17 samples and 8 corners x 1, 4 heights
+  each."""
+  from raisimlib_torch.ops import gpu_step
+
+  sd, g = trot_sd
+  _, ops, loads = gpu_step.kernel_source(sd)
+  q = torch.tensor(g["q0"][None], dtype=torch.float32)
+  z = torch.zeros((1, 18))
+  with torch.inference_mode():
+    K = gpu_step._TorchOps(1, torch.float32, "cpu", torch.tensor(g["heights"][None],
+                                                                 dtype=torch.float32))
+    cols = lambda x, n: [gpu_step._Val(K, x[:, k]) for k in range(n)]   # noqa: E731
+    gpu_step._emit_step(sd, K, cols(q, 19), cols(z, 18), cols(z, 18), cols(z, 18))
+  assert (ops, loads) == (K.ops, K.loads)
+  assert loads == 4 * (4 * 17 + 8)
+
+
 _HOST_PRE = r"""
 #include <math.h>
 #include <stddef.h>
 #define __device__
 #define __forceinline__ inline
+#define __ldg(p) (*(p))
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 """
 _HOST_POST = r"""
 extern "C" void host_step(const float* q, const float* u, const float* tau, const float* pd,
-                          float* qo, float* uo, int B) {
+                          const float* hts, long long hts_stride, float* qo, float* uo, int B) {
   for (int b = 0; b < B; ++b)
     fs_body(q + (size_t)b * FS_NQ, u + (size_t)b * FS_NV, tau + (size_t)b * FS_NV,
-            pd + (size_t)b * FS_NV, qo + (size_t)b * FS_NQ, uo + (size_t)b * FS_NV);
+            pd + (size_t)b * FS_NV, hts ? hts + (size_t)b * hts_stride : NULL,
+            qo + (size_t)b * FS_NQ, uo + (size_t)b * FS_NV);
 }
 """
 
 
-def test_kernel_body_compiled_on_host_matches_twin(anymal_sd, tmp_path):
-  """The generated body (`fs_body`, the kernel minus its CUDA frame),
-  compiled as host C++ without FMA contraction and run on the CPU, against
-  the twin on 64 ANYmal worlds: the same operations in the same order, so
-  only the host's libm (sinf, cosf) and rsqrt = 1/sqrt separate them, by an
-  ulp that the Gauss-Seidel sweeps can amplify. The card's two tiers apply
-  (99% of worlds within 2e-5 on q and 2e-4 on u, all within 5e-4 and
-  5e-3), and the median world must agree to 1e-6 on u."""
+def _host_step(sd, tmp_path):
+  """The generated body (`fs_body`, the kernel minus its CUDA frame) built
+  as host C++ without FMA contraction; skips without a host compiler."""
   import ctypes
   import shutil
   import subprocess
@@ -404,7 +440,7 @@ def test_kernel_body_compiled_on_host_matches_twin(anymal_sd, tmp_path):
   cxx = shutil.which("g++")
   if cxx is None:
     pytest.skip("needs a host C++ compiler")
-  src, _ = gpu_step.kernel_source(anymal_sd)
+  src = gpu_step.kernel_source(sd)[0]
   src = src.replace("#include <cuda_runtime.h>", "").replace('#include "fused_step.cuh"', "")
   cpp, lib = tmp_path / "fused_host.cpp", tmp_path / "fused_host.so"
   cpp.write_text(_HOST_PRE + src + _HOST_POST)
@@ -413,18 +449,52 @@ def test_kernel_body_compiled_on_host_matches_twin(anymal_sd, tmp_path):
                      capture_output=True, text=True, timeout=300)
   assert r.returncode == 0, r.stderr[:3000]
   host = ctypes.CDLL(str(lib))
-  host.host_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
-  g = load_golden()
-  B = 64
-  q, u = perturbed_states(g, B, seed=8)
-  pd = np.tile(g["pd_targets"][0], (B, 1))
+  host.host_step.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                             + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+  return host.host_step
+
+
+def _host_matches_twin(sd, host_step, q, u, pd, heights=None):
+  """The host-compiled body and the twin on the same worlds: the card's two
+  tiers (99% of worlds within 2e-5 on q and 2e-4 on u, all within 5e-4 and
+  5e-3), and the median world within 1e-6 on u."""
+  from raisimlib_torch.ops import gpu_step
+
+  B = q.shape[0]
   ins = [np.ascontiguousarray(x, np.float32) for x in (q, u, np.zeros_like(pd), pd)]
+  hts = None if heights is None else np.ascontiguousarray(heights, np.float32)
   qo, uo = np.zeros_like(ins[0]), np.zeros_like(ins[1])
-  host.host_step(*(x.ctypes.data for x in ins + [qo, uo]), B)
+  host_step(*(x.ctypes.data for x in ins), None if hts is None else hts.ctypes.data,
+            0 if hts is None else hts[0].size, qo.ctypes.data, uo.ctypes.data, B)
   with torch.inference_mode():
-    qp, up = gpu_step._fused_plain(anymal_sd, *(torch.tensor(x) for x in ins))
+    qp, up = gpu_step._fused_plain(sd, *(torch.tensor(x) for x in ins),
+                                   heights=None if hts is None else torch.tensor(hts))
   dq = np.abs(qo - qp.numpy()).max(1)
   du = np.abs(uo - up.numpy()).max(1)
   assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
   assert dq.max() <= 5e-4 and du.max() <= 5e-3
   assert np.median(du) <= 1e-6
+
+
+def test_kernel_body_compiled_on_host_matches_twin(anymal_sd, tmp_path):
+  """The generated body compiled as host C++ and run on the CPU, against the
+  twin on 64 ANYmal worlds: the same operations in the same order, so only
+  the host's libm (sinf, cosf) and rsqrt = 1/sqrt separate them, by an ulp
+  that the Gauss-Seidel sweeps can amplify (see _host_matches_twin)."""
+  g = load_golden()
+  q, u = perturbed_states(g, 64, seed=8)
+  _host_matches_twin(anymal_sd, _host_step(anymal_sd, tmp_path), q, u,
+                     np.tile(g["pd_targets"][0], (64, 1)))
+
+
+def test_terrain_kernel_body_compiled_on_host_matches_twin(trot_sd, tmp_path):
+  """K1c's body (the heightmap probe and its runtime frames) compiled as host
+  C++, against the twin on 64 ANYmal worlds around the trot golden's start,
+  each on its own terrain: the golden's heights plus 2 cm of noise, so that
+  the worlds read their own fields (stride nx ny)."""
+  sd, g = trot_sd
+  rng = np.random.RandomState(9)
+  q, u = perturbed_states(g, 64, seed=9)
+  hts = g["heights"][None] + 0.02 * rng.randn(64, 48, 24)
+  _host_matches_twin(sd, _host_step(sd, tmp_path), q, u,
+                     np.tile(g["pd_targets"][0], (64, 1)), hts)

@@ -16,7 +16,9 @@ FORBIDDEN = ("jax", "flax", "raisimlib_tpu")
 def test_import_loads_no_jax():
   code = ("import sys, raisimlib_torch, raisimlib_torch.convert, "
           "raisimlib_torch.mpc.mppi, raisimlib_torch.mpc.state_map, "
-          "raisimlib_torch.ops.pipeline, raisimlib_torch.ops.gpu_step\n"
+          "raisimlib_torch.ops.pipeline, raisimlib_torch.ops.gpu_step, "
+          "raisimlib_torch.ops.heightmap, raisimlib_torch.utils.terrain, "
+          "raisimlib_torch.utils.parity\n"
           f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
           "print(bad); sys.exit(1 if bad else 0)")
   env = dict(os.environ, PYTHONPATH=REPO)
@@ -79,3 +81,27 @@ def test_table_factories_default_to_cuda(factory):
     with pytest.raises(RuntimeError, match="device='cpu'"):
       make()
   assert make(device="cpu").device.type == "cpu"
+
+
+def test_terrain_defaults_to_cuda():
+  """The terrain builders, called without a device, build on the card (and
+  raise without one); World.add_heightmap moves the field to the world's
+  device, so a World() scene's field lives on the card."""
+  from raisimlib_torch.utils import terrain
+  from raisimlib_torch.world import World
+
+  props = terrain.TerrainProperties(x_samples=8, y_samples=6)
+  if torch.cuda.is_available():
+    assert terrain.flat().heights.device.type == "cuda"
+    assert terrain.generate(props).heights.device.type == "cuda"
+    world = World()
+    world.add_heightmap(terrain.flat(device="cpu"))
+    assert world.compile().field.heights.device.type == "cuda"
+  else:
+    for make in (terrain.flat, lambda: terrain.generate(props)):
+      with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+  world = World(device="cpu")
+  world.add_heightmap(terrain.flat(device="cpu"))
+  field = world.compile().field
+  assert field.heights.device.type == "cpu" and field.center.device.type == "cpu"

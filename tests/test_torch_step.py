@@ -74,12 +74,15 @@ def test_kernel_path_matches_jax_pure_path(reference):
 
 
 def test_step_batch_rejects_heightfields():
+  """Heights for a scene without a heightmap (the flat ANYmal scene) raise,
+  as the JAX package asserts; terrain scenes take them
+  (tests/test_torch_terrain_step.py)."""
   from raisimlib_torch.ops import pipeline as tp
   from raisimlib_torch.ops.integrator import State
 
   ts = torch_anymal_scene()
   s = ts.init_state()
   s = State(q=s.q[None], u=s.u[None], t=s.t[None])
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  with pytest.raises(ValueError, match="without a heightmap"):
     tp.step_batch(ts, s, torch.zeros(1, 18, dtype=torch.float64),
                   field_heights=torch.zeros(1, 4, 4))

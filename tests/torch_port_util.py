@@ -59,6 +59,10 @@ def flatten_jax_scene(scene):
                 geom_material=g.material, pairs=scene.pairs,
                 constraints=tuple(scene.constraints), dt=scene.dt,
                 objects=scene.objects)
+  if getattr(scene, "field", None) is not None:
+    arrays.update(field_heights=np.asarray(scene.field.heights),
+                  field_center=np.asarray(scene.field.center))
+    static.update(field_size=(scene.field.size_x, scene.field.size_y))
   return arrays, static
 
 
