@@ -5,12 +5,14 @@ Run from the repository root on a machine with an H100 and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the hand-written kernels (one nvcc per source, in parallel), then
-drives the port's two main paths on the ANYmal balance configuration, and the
-terrain path on procedural heightmaps, through their public entry points:
+drives the port's two main paths on the ANYmal balance configuration, the
+terrain path on procedural heightmaps, and the sphere-box stack (BASELINE
+config 2), through their public entry points:
 
   1. card and build: the card's name and power limit; the kernels' build
      (K2 from csrc/mf_solve.cu; K1 generated by ops/gpu_step.py for the flat
-     scene and, as K1c, for the terrain scene), seconds and what ptxas says;
+     scene, as K1c for the terrain scenes, and as K1b for the stack and
+     phase 18's two other scenes), seconds and what ptxas says;
   K2 path (pipeline.step_batch, fused="never"):
   2. K2 against its plain twin on the card (float32): the ANYmal solver
      inputs at B = 4096, random problems with nc = 1, 4, 12, lin and
@@ -42,11 +44,24 @@ terrain path on procedural heightmaps, through their public entry points:
       samples, H = 16, 8 substeps, 150 ticks (3 s); no robot may fall;
   16. tests/goldens/anymal_trot_heightmap.npz through K1c and through the K2
       path (80 steps, f32), under the trot gate of utils/parity.py;
-  17. K1c times at B = 16384 and B = 384 (the trot batch).
+  17. K1c times at B = 16384 and B = 384 (the trot batch);
+  the sphere-box stack (raisimlib_tpu/scenarios/sphere_box_stack.yaml, its
+  values in STACK; "ss", "sb" and "sc" slots, K1b):
+  18. K1b against its twin and against the K2 path: the stack at B = 4096
+      from the start state (box kicked 0.3 m/s, noise 1e-3 m and 1e-2 m/s)
+      and 200 steps into a rollout; two spheres and a capsule ("ss", "sc")
+      and a sphere on a static box ("sb", body_b = -1), B = 1037, from a
+      state in which every sphere pair touches and 100 steps on;
+  19. tests/goldens/sphere_box_stack.npz (400 steps, f32) through Scene.step,
+      K1b and the K2 path, under the JAX package's gate (utils/parity.py);
+  20. examples/sphere_box_stack.py batched through K1b: 10 s (5000 steps)
+      of 16384 kicked stacks, noise on the positions and the box's velocity
+      (STACK_DQ, STACK_DU), every world held to the example's four gates;
+  21. K1b times at B = 16384 and B = 1024.
 
-Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14 and 15
-and read just after: each path must launch its own kernel once per physics
-step and the other kernel never. Any failure exits non-zero. The last line of
+Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15 and
+20 and read just after: each path must launch its own kernel once per
+physics step and the other kernel never. Any failure exits non-zero. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernels' numbers, and the line before that the card's name and
 power limit.
@@ -212,6 +227,29 @@ def check_against_k2(torch, scene, step, s, tau, pd, label, hts=None):
        f"max |du| {float((s1.u - s2.u).abs().max()):.2e}")
   if over_q > 0.0 or over_u > 0.0:
     fail(f"{label}: K1 and the K2 path part beyond the kernel-vs-pure bounds")
+
+
+K1B_KINDS = ("ss", "sb", "sc")
+
+
+def check_k1b(torch, scene, step, s, tau, label, touching=True):
+  """K1b against its twin (check_fused) and against the K2 path, after
+  reporting the share of worlds in which each sphere pair touches (the K2
+  path's narrow phase); with `touching`, each must touch in some world.
+  Returns K1b's max abs error against the twin."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
+
+  idx = [i for i, x in enumerate(step.sd.slots) if x.kind in K1B_KINDS]
+  act = coll.collide(scene.geoms, scene.pairs, dynamics.fk(scene.model, s.q)).active[:, idx]
+  share = act.float().mean(0).tolist()
+  note(f"  {label}: share of worlds touching per sphere pair "
+       f"{[round(x, 4) for x in share]}")
+  if touching and min(share) == 0.0:
+    fail(f"{label}: a sphere pair touches in no world")
+  err = check_fused(torch, step, s, tau, None, label)[0]
+  check_against_k2(torch, scene, step, s, tau, None, f"{label}, K1b vs K2 path")
+  return err
 
 
 def sync(torch, dev):
@@ -473,6 +511,178 @@ def trot_golden(torch, step_for, label, device=None):
   return float(d.max())
 
 
+# BASELINE config 2, the sphere-box stack, as raisimlib_tpu/scenarios/
+# sphere_box_stack.yaml gives it (the card's machine has no PyYAML; a CPU
+# test, tests/test_torch_stack.py, holds these values to the file)
+STACK = {
+    "dt": 0.002,
+    "gravity": (0.0, 0.0, -9.81),
+    "box": {"half_extents": (0.25, 0.25, 0.15), "mass": 2.0, "pos": (0.0, 0.0, 0.151)},
+    "sphere": {"radius": 0.12, "mass": 1.0, "pos": (0.05, 0.0, 0.45)},
+    "sim_seconds": 10.0,
+    "kick_m_s": 0.3,                 # on the box's x dof (u[3])
+    "gates": {"box_rest_z": 0.15, "sphere_rest_z": 0.42, "rest_tol": 0.005,
+              "max_penetration": 0.005, "settled_speed": 0.05},
+}
+
+
+# Phase 20's noise per world: 1e-3 m on both bodies' positions, 1e-2 m/s on
+# the box's linear velocity (u = [angular, linear] per body). The
+# orientations and the sphere's velocity stay exact: a sphere on a flat face
+# keeps any rolling speed it is given (there is no rolling resistance), and
+# the example's speed gate (0.05 on every |u| entry) takes its spin too. A
+# box tilted by 1e-3 at the start lands on an edge and rocks, which hands the
+# sphere ~1 cm/s (0.1 rad/s of spin) and fails that gate by physics, not by
+# the kernel; phase 20 reports how many worlds phase 18's noise on every
+# entry fails.
+STACK_DQ = np.r_[[1e-3] * 3, [0.0] * 4, [1e-3] * 3, [0.0] * 4]
+STACK_DU = np.r_[[0.0] * 3, [1e-2] * 3, [0.0] * 6]
+
+
+def stack_scene(torch, device=None, dtype=None):
+  """The stack of examples/sphere_box_stack.py: the ground, a box, a sphere
+  (the YAML's order). Its bodies carry no PD gains."""
+  from raisimlib_torch.world import World
+
+  world = World(dt=STACK["dt"], gravity=STACK["gravity"], dtype=dtype or torch.float32,
+                device=device)
+  world.add_ground()
+  world.add_box(**STACK["box"])
+  world.add_sphere(**STACK["sphere"])
+  return world.compile()
+
+
+def spheres_capsule_scene(torch, device=None, dtype=None):
+  """Two stacked spheres and a capsule on the ground (the scene of the JAX
+  package's tests/test_pallas_step.py TestRuntimeFramePairs): "ss" and "sc"
+  slots."""
+  from raisimlib_torch.world import World
+
+  world = World(dt=0.002, dtype=dtype or torch.float32, device=device)
+  world.add_ground()
+  world.add_sphere(0.1, 1.0, pos=(0.0, 0.0, 0.11), name="a")
+  world.add_sphere(0.1, 1.0, pos=(0.12, 0.0, 0.28), name="b")
+  world.add_capsule(0.06, 0.15, 0.5, pos=(1.0, 0.0, 0.07), name="c")
+  return world.compile(joint_limits=False)
+
+
+def static_box_scene(torch, device=None, dtype=None):
+  """A sphere resting on a static box (turned 0.3 rad about z) on the
+  ground: an "sb" slot whose box is world geometry (body -1)."""
+  from raisimlib_torch.world import World
+
+  c, s = np.cos(0.3), np.sin(0.3)
+  world = World(dt=0.002, dtype=dtype or torch.float32, device=device)
+  world.add_ground()
+  world.add_box((0.3, 0.2, 0.1), 0.0, pos=(0.0, 0.0, 0.1), static=True,
+                rot=[[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+  world.add_sphere(0.1, 1.0, pos=(0.05, 0.02, 0.3))
+  return world.compile(joint_limits=False)
+
+
+# states in which every sphere pair of a scene touches: spheres a and b side
+# by side on the capsule (laid along y), touching each other; the sphere on
+# the static box
+CONTACT_Q = {
+    "spheres_capsule": [1.0, -0.08, 0.217, 1, 0, 0, 0, 1.0, 0.115, 0.217, 1, 0, 0, 0,
+                        1.0, 0.0, 0.0595, np.cos(np.pi / 4), np.cos(np.pi / 4), 0, 0],
+    "static_box": [0.05, 0.02, 0.299, 1, 0, 0, 0],
+}
+
+
+def loose_states(torch, scene, B, seed, dq=1e-3, du=1e-2, kick=None, q0=None):
+  """B states at q0 (default: the scene's initial q) with Gaussian noise dq
+  on q (quaternions renormalised) and du on u, each a scale or one per
+  entry, plus `kick` (dof, m/s)."""
+  from raisimlib_torch.models.model import JointType
+
+  m = scene.model
+  rng = np.random.RandomState(seed)
+  if q0 is None:
+    q0 = m.q_init.cpu().numpy()
+  q = np.tile(np.asarray(q0, np.float64)[None], (B, 1))
+  q += dq * rng.randn(B, m.nq)
+  for b in range(m.nb):
+    if JointType(m.joint_types[b]) == JointType.FREE:
+      qa = m.q_adr[b] + 3
+      q[:, qa:qa + 4] /= np.linalg.norm(q[:, qa:qa + 4], axis=1, keepdims=True)
+  u = du * rng.randn(B, m.nv)
+  if kick is not None:
+    u[:, kick[0]] += kick[1]
+  f32 = dict(dtype=torch.float32, device=scene.device)
+  return scene.init_state(q=torch.tensor(q, **f32), u=torch.tensor(u, **f32))
+
+
+def stack_golden(torch, step_for, label, device=None):
+  """Replay tests/goldens/sphere_box_stack.npz (400 steps, f32) through
+  `step_for(scene)(state)` on a batch of one world and hold it to the stack
+  gate of utils/parity.py (the JAX package's: max|dq| <= 1e-4, the resting
+  heights within 2e-3). Returns max|dq|."""
+  from raisimlib_torch.utils import parity
+
+  here = os.path.dirname(os.path.abspath(__file__))
+  g = np.load(os.path.join(here, "tests", "goldens", "sphere_box_stack.npz"))
+  scene = stack_scene(torch, device=device)
+  f32 = dict(dtype=torch.float32, device=scene.device)
+  s = scene.init_state(q=torch.tensor(g["q0"][None], **f32), u=torch.tensor(g["u0"][None], **f32))
+  stepfn = step_for(scene)
+  qs = []
+  t0 = time.perf_counter()
+  with torch.inference_mode():
+    for _ in range(int(g["N"])):
+      s = stepfn(s)
+      qs.append(s.q[0])
+    qs = torch.stack(qs).cpu().numpy()
+  dq = parity.stack_deviation(qs, g)
+  note(f"  {label}: {len(qs)} steps in {time.perf_counter() - t0:.1f} s: max|dq| {dq.max():.3e} "
+       f"(step {int(dq.argmax())}); rest box z {qs[-1, 2]:.5f}, sphere z {qs[-1, 9]:.5f}")
+  failures = parity.stack_gate_failures(qs, g)
+  if failures:
+    fail(f"{label} stack gate: " + "; ".join(failures))
+  return float(dq.max())
+
+
+def reference_step(scene):
+  """Scene.step, the single-world reference, as a step of a batch of one."""
+  from raisimlib_torch.ops.integrator import State
+
+  def step(s):
+    s1 = scene.step(State(q=s.q[0], u=s.u[0], t=s.t[0]))
+    return State(q=s1.q[None], u=s1.u[None], t=s1.t[None])
+  return step
+
+
+def run_stack(torch, step, s, n, gc, gs):
+  """examples/sphere_box_stack.py batched: n steps of `step` from s, then
+  the example's four gates for every world. Returns (seconds, (K2, K1)
+  counts, final state, gate summary)."""
+  g = STACK["gates"]
+  step(s)                                            # warm-up (a launch, not counted)
+  torch.cuda.synchronize()
+  box_min = torch.full_like(s.q[:, 2], float("inf"))
+  reset_counts(gc, gs)
+  t0 = time.perf_counter()
+  with torch.inference_mode():
+    for _ in range(n):
+      s = step(s)
+      box_min = torch.minimum(box_min, s.q[:, 2])
+  torch.cuda.synchronize()
+  t = time.perf_counter() - t0
+  counts = read_counts(gc, gs)
+  if not (torch.isfinite(s.q).all() and torch.isfinite(s.u).all()):
+    fail("stack state not finite")
+  box_err = (s.q[:, 2] - g["box_rest_z"]).abs()
+  sph_err = (s.q[:, 9] - g["sphere_rest_z"]).abs()
+  pen = torch.clamp(g["box_rest_z"] - box_min, min=0.0)
+  speed = s.u.abs().amax(1)
+  summary = {"box_z_err_max": float(box_err.max()), "sphere_z_err_max": float(sph_err.max()),
+             "box_penetration_max": float(pen.max()), "settled_speed_max": float(speed.max())}
+  bad = ((box_err >= g["rest_tol"]) | (sph_err >= g["rest_tol"])
+         | (pen >= g["max_penetration"]) | (speed >= g["settled_speed"]))
+  summary["worlds_failing"] = int(bad.sum())
+  return t, counts, s, summary
+
+
 def main():
   import torch
 
@@ -506,6 +716,15 @@ def main():
   # kd 3; phases 15, 16) has a kernel of its own, built here too, so that no
   # build falls inside a timed loop
   gs.make_step_batch_fused(anymal_scene(torch, kp=120.0, kd=3.0, terrain=True)).kernel
+  # K1b: the sphere-box stack (phases 18-21) and phase 18's two other scenes
+  sscene = stack_scene(torch)
+  fused_b = gs.make_step_batch_fused(sscene, use_pd=False)
+  kern_b = fused_b.kernel
+  k1b_scenes = {"spheres_capsule": spheres_capsule_scene(torch),
+                "static_box": static_box_scene(torch)}
+  k1b_steps = {k: gs.make_step_batch_fused(sc, use_pd=False) for k, sc in k1b_scenes.items()}
+  for st in k1b_steps.values():
+    st.kernel
   t0 = time.perf_counter()
   built = _build.build()
   note(f"build: {time.perf_counter() - t0:.2f} s in parallel; "
@@ -514,6 +733,12 @@ def main():
     for line in log.splitlines():
       if "registers" in line or "spill" in line or "error" in line:
         note(f"  ptxas[{name}]: {line.strip()}")
+  note(f"K1b source for the stack scene: {kern_b.source.count(chr(10))} lines, "
+       f"{kern_b.ops_per_world} operations per world, slots "
+       f"{sorted(s.kind for s in fused_b.sd.slots)}; nvcc {built.get(kern_b.name, 0.0):.2f} s")
+  for line in _build.build_logs.get(kern_b.name, "").splitlines():
+    if "registers" in line or "spill" in line:
+      note(f"  ptxas[K1b]: {line.strip()}")
 
   # ---- 2. K2 vs plain twin ---------------------------------------------------
   note("phase 2: K2 vs plain twin (float32)")
@@ -797,12 +1022,130 @@ def main():
       "build_s": built.get(kern_c.name),
       "trot_golden_max_dtau": {"K1c": trot_dev_k1, "K2": trot_dev_k2},
   }
+
+  # ---- 18. K1b vs its plain twin, and vs the K2 path ---------------------------------------
+  note("phase 18: K1b (ss, sb, sc slots) vs plain twin (float32), and vs the K2 path")
+  kick = (3, STACK["kick_m_s"])
+  k1b_errs = []
+  with torch.inference_mode():
+    s = loose_states(torch, sscene, 4096, seed=18, kick=kick)
+    tau18 = torch.zeros_like(s.u)
+    k1b_errs.append(check_k1b(torch, sscene, fused_b, s, tau18, "stack, start state", False))
+    for _ in range(200):
+      s = fused_b(s, tau18)
+    z_box, z_sph = s.q[:, 2], s.q[:, 9]
+    note(f"  after 200 steps: box z [{float(z_box.min()):.4f}, {float(z_box.max()):.4f}], "
+         f"sphere z [{float(z_sph.min()):.4f}, {float(z_sph.max()):.4f}]")
+    if float(z_sph.min()) < 0.40:
+      fail("the sphere is not on the box 200 steps into the stack rollout")
+    k1b_errs.append(check_k1b(torch, sscene, fused_b, s, tau18, "stack, 200 steps in"))
+    for key, sc in k1b_scenes.items():
+      st = k1b_steps[key]
+      note(f"  {key}: slots {sorted(x.kind for x in st.sd.slots)}, body_b "
+           f"{sorted({x.body_b for x in st.sd.slots if x.kind in K1B_KINDS})}")
+      s = loose_states(torch, sc, 1037, seed=19, q0=CONTACT_Q[key])
+      tau = torch.zeros_like(s.u)
+      k1b_errs.append(check_k1b(torch, sc, st, s, tau, f"{key}, touching"))
+      for _ in range(100):
+        s = st(s, tau)
+      k1b_errs.append(check_k1b(torch, sc, st, s, tau, f"{key}, 100 steps in", False))
+  k1b_err = max(k1b_errs)
+
+  # ---- 19. the stack golden through Scene.step, K1b and the K2 path ---------------------------
+  note("phase 19: stack golden (tests/goldens/sphere_box_stack.npz, 400 steps) through "
+       "Scene.step, K1b and the K2 path")
+  stack_dev = {"Scene.step": stack_golden(torch, reference_step, "Scene.step")}
+
+  def fused_stack(sc):
+    step = gs.make_step_batch_fused(sc, use_pd=False)
+    return lambda st: step(st, torch.zeros_like(st.u))
+
+  stack_dev["K1b"] = stack_golden(torch, fused_stack, "K1b")
+  stack_dev["K2"] = stack_golden(torch, lambda sc: lambda st: sc.step_batch(st), "K2")
+
+  # ---- 20. examples/sphere_box_stack.py batched through K1b ---------------------------------
+  n20 = int(round(STACK["sim_seconds"] / STACK["dt"]))
+  note(f"phase 20: the stack example through K1b, {n20} steps ({STACK['sim_seconds']} s), "
+       f"box kicked {STACK['kick_m_s']} m/s, noise on the positions and the box's velocity")
+  for B20 in (16384, 4096):
+    with torch.inference_mode():
+      s20 = loose_states(torch, sscene, B20, seed=20, dq=STACK_DQ, du=STACK_DU, kick=kick)
+      tau20 = torch.zeros_like(s20.u)
+      t20, counts, _, gates = run_stack(torch, lambda st: fused_b(st, tau20), s20, n20, gc, gs)
+    if t20 <= 60.0:
+      break
+    note(f"  {t20:.1f} s at B={B20}: over 60 s, so B=4096")
+  k1b_launches = counts[1]
+  stack_rate = B20 * n20 / t20
+  note(f"  {t20:.2f} s, world-steps/s {stack_rate:.0f}, launches K2 {counts[0]} K1 {counts[1]}; "
+       f"gates: {gates}")
+  if counts != (0, n20):
+    fail(f"the stack example launched (K2, K1) {counts} times for {n20} steps")
+  if gates["worlds_failing"]:
+    fail(f"{gates['worlds_failing']} of {B20} worlds miss the example's gates")
+  # reported, not gated: phase 18's noise on every entry of q and u
+  with torch.inference_mode():
+    s = loose_states(torch, sscene, 4096, seed=20, kick=kick)
+    tau = torch.zeros_like(s.u)
+    _, _, _, gates_all = run_stack(torch, lambda st: fused_b(st, tau), s, n20, gc, gs)
+  note(f"  with phase 18's noise on every q and u entry instead, B=4096: "
+       f"{gates_all['worlds_failing']} worlds miss the gates (not a failure: see STACK_DQ); "
+       f"{gates_all}")
+
+  # ---- 21. K1b times -----------------------------------------------------------------------
+  note(f"phase 21: K1b times at B={B} and B=1024")
+  lib_b = _build.load(kern_b.name)
+  k1b_times = {}
+  with torch.inference_mode():
+    for b, seed in ((B, 21), (1024, 22)):
+      sb = loose_states(torch, sscene, b, seed=seed, kick=kick)
+      taub = torch.zeros_like(sb.u)
+      qo, uo = torch.empty_like(sb.q), torch.empty_like(sb.u)
+      ptrs = [sb.q.data_ptr(), sb.u.data_ptr(), taub.data_ptr(), None]
+      outs = [qo.data_ptr(), uo.data_ptr()]
+      k1b_times[b] = (
+          time_cuda(torch, lambda: fused_b(sb, taub), 20),
+          time_cuda(torch, lambda: lib_b.fused_step_launch(*ptrs, None, 0, *outs, b, stream), 20))
+      if b == B:
+        plain_b_ms = time_cuda(torch, lambda: gs._fused_plain(fused_b.sd, sb.q, sb.u, taub), 2)
+  msb, kernel_b_ms = k1b_times[B]
+  nbytes_b, nops_b = gs.fused_step_cost(fused_b.sd, B, kern_b.ops_per_world)
+  t_bytes_b = nbytes_b / H100_BYTES_PER_S * 1e3
+  t_ops_b = nops_b / H100_F32_OPS_PER_S * 1e3
+  note(f"  B={B}: wrapper {msb:.3f} ms (kernel alone {kernel_b_ms:.3f} ms), plain twin "
+       f"{plain_b_ms:.3f} ms; bound {max(t_bytes_b, t_ops_b):.4f} ms ({nbytes_b / 1e6:.1f} MB "
+       f"-> {t_bytes_b:.4f} ms, {nops_b / 1e9:.2f} GFLOP -> {t_ops_b:.4f} ms)")
+  note(f"  B=1024: wrapper {k1b_times[1024][0]:.3f} ms (kernel alone {k1b_times[1024][1]:.3f} ms)")
+  k1b = {
+      "name": "fused_step (K1b, ss/sb/sc slots: sphere vs sphere, box, capsule; cone_solve K3 "
+              "inlined)",
+      "route": "cuda",
+      "source": "raisimlib_torch/ops/gpu_step.py",
+      "template": "raisimlib_torch/csrc/fused_step.cuh",
+      "replaces": "raisimlib_tpu/ops/pallas_step.py:995",
+      "launches": k1b_launches,
+      "max_abs_err": k1b_err,
+      "ms": msb,
+      "kernel_only_ms": kernel_b_ms,
+      "plain_ms": plain_b_ms,
+      "bound_ms": max(t_bytes_b, t_ops_b),
+      "bound_by": "bytes" if t_bytes_b >= t_ops_b else "operations",
+      "library_ms": None,
+      "ms_b1024": k1b_times[1024][0],
+      "kernel_only_ms_b1024": k1b_times[1024][1],
+      "ops_per_world": kern_b.ops_per_world,
+      "build_s": built.get(kern_b.name),
+      "stack_worlds": B20,
+      "stack_world_steps_per_s": stack_rate,
+      "stack_golden_max_dq": stack_dev,
+  }
   note(f"  end to end: rollouts/s through K1 {B / t_roll1:.1f}; MPPI solves/s through "
        f"K2 {32 / t_mppi:.2f}, through K1 {32 / t_mppi1:.2f}; terrain rollouts/s through K1c "
-       f"{B / t_roll_c:.1f}; trot MPC solves/s through K1c {trot_solves:.2f}")
+       f"{B / t_roll_c:.1f}; trot MPC solves/s through K1c {trot_solves:.2f}; stack "
+       f"world-steps/s through K1b {stack_rate:.0f}")
   note(f"total {time.perf_counter() - t_start:.1f} s")
   note(f"card: {card}")
-  print(json.dumps({"kernels": [k2, k1, k1c]}), flush=True)
+  print(json.dumps({"kernels": [k2, k1, k1c, k1b]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

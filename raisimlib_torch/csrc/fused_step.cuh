@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel raisimlib_tpu/ops/pallas_step.py `_step_kernel`
 // (pallas_call in `build_fused_step_lane`) for its scene classes K1a (plane
-// contacts) and K1c's `hm_pt` slots (points and spheres against a
-// heightmap). The body `fs_body` is generated per scene by
+// contacts), K1b (a sphere against a sphere, a box or a capsule, on a body
+// or static: `ss`, `sb`, `sc` slots, whose narrow phase reads only q) and
+// K1c's `hm_pt` slots (points and spheres against a heightmap). The body
+// `fs_body` is generated per scene by
 // raisimlib_torch/ops/gpu_step.py (`kernel_source`), which defines FS_NQ,
 // FS_NV, FS_USE_PD and FS_HAS_HM and then includes this file. The body runs
 // the whole step of one world: PD, FK, RNEA, CRBA, Cholesky, contact and

@@ -1,9 +1,15 @@
 """Collision detection over a static pair list, batched over worlds.
 
 Counterpart of raisimlib_tpu/ops/collision.py, restricted to sphere, box and
-capsule against the ground plane and against a heightmap (ops/heightmap.py).
-Every other pair type is rejected when the scene is built (candidate_pairs)
-and again by `collide`, with an error that names it.
+capsule against the ground plane and against a heightmap (ops/heightmap.py),
+and a sphere against a sphere, a box or a capsule (the runtime-frame pairs).
+Every other pair type (box-box, capsule-capsule, the support-function pairs,
+cylinders, cones and meshes) is rejected when the scene is built
+(candidate_pairs) and again by `collide`, with an error that names it.
+
+The plane and heightmap pairs run grouped by type; the sphere pairs run one
+pair at a time, each gated by the broad phase's AABB overlap
+(`broadphase_mask`), as in the JAX package.
 
 Contact convention: the normal points from geom B towards geom A; relative
 velocity is v(A) - v(B) at the contact point; depth > 0 means penetration.
@@ -34,6 +40,9 @@ GEOM_NAMES = {GEOM_SPHERE: "sphere", GEOM_BOX: "box", GEOM_CAPSULE: "capsule",
 
 # slots contributed per ported pair type (keyed by sorted gtype pair)
 _PAIR_SLOTS = {
+    (GEOM_SPHERE, GEOM_SPHERE): 1,
+    (GEOM_SPHERE, GEOM_BOX): 1,
+    (GEOM_SPHERE, GEOM_CAPSULE): 1,
     (GEOM_SPHERE, GEOM_PLANE): 1,
     (GEOM_BOX, GEOM_PLANE): 8,
     (GEOM_CAPSULE, GEOM_PLANE): 2,
@@ -47,8 +56,8 @@ def _unported(ta: int, tb: int) -> NotImplementedError:
   return NotImplementedError(
       f"geom pair ({GEOM_NAMES.get(ta, ta)}, {GEOM_NAMES.get(tb, tb)}) has no "
       f"narrow phase in raisimlib_torch yet (ported: sphere/box/capsule vs "
-      f"plane and heightmap); see ROADMAP.md items 10 (runtime-frame pairs) "
-      f"and 13 (the rest of collision)")
+      f"plane and heightmap, sphere vs sphere/box/capsule); see ROADMAP.md "
+      f"item 13 (the rest of collision)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +112,8 @@ def candidate_pairs(specs: Sequence[GeomSpec], model, self_collision: bool = Fal
   """Static candidate pair list (ia, ib), same filter and canonical order as
   the JAX package: no same-body, parent-child, same-object (unless
   self_collision) or static-static pairs; the plane or heightmap comes
-  second."""
+  second, otherwise the lower geom type comes first (so a sphere comes
+  before a box or a capsule, as the pair kernels assume)."""
   pairs = []
   for i in range(len(specs)):
     for j in range(i + 1, len(specs)):
@@ -119,7 +129,12 @@ def candidate_pairs(specs: Sequence[GeomSpec], model, self_collision: bool = Fal
       ti, tj = int(specs[i].gtype), int(specs[j].gtype)
       if tuple(sorted((ti, tj))) not in _PAIR_SLOTS:
         raise _unported(ti, tj)
-      pairs.append((j, i) if ti in (GEOM_PLANE, GEOM_HEIGHTMAP) else (i, j))
+      if ti in (GEOM_PLANE, GEOM_HEIGHTMAP):
+        pairs.append((j, i))
+      elif tj in (GEOM_PLANE, GEOM_HEIGHTMAP) or ti <= tj:
+        pairs.append((i, j))
+      else:
+        pairs.append((j, i))
   return tuple(pairs)
 
 
@@ -197,6 +212,105 @@ def _capsule_plane(geoms, ia, ib, kin):
   return out
 
 
+def _sphere_contact(ca, cb, ra, rb):
+  """Sphere A (centre ca, radius ra) vs sphere B: the one slot."""
+  d = ca - cb
+  dist = torch.sqrt(torch.sum(d * d, -1) + 1e-18)
+  n = d / dist[:, None]
+  depth = (ra + rb) - dist
+  pos = cb + n * (rb - 0.5 * depth)[:, None]
+  return [(pos, n, depth, depth > 0)]
+
+
+def _sphere_sphere(geoms, ia, ib, kin):
+  _, ca = _geom_pose(geoms, ia, kin)
+  _, cb = _geom_pose(geoms, ib, kin)
+  return _sphere_contact(ca, cb, geoms.params[ia, 0], geoms.params[ib, 0])
+
+
+def _sphere_capsule(geoms, ia, ib, kin):
+  """Sphere (A) vs capsule (B): the sphere centre clamped onto the capsule's
+  segment, then sphere against sphere."""
+  rb, hlb = geoms.params[ib, 0], geoms.params[ib, 1]
+  _, ca = _geom_pose(geoms, ia, kin)
+  Rb, pb = _geom_pose(geoms, ib, kin)
+  axis = Rb[:, :, 2]
+  t = torch.clamp(torch.sum((ca - pb) * axis, -1), -hlb, hlb)
+  return _sphere_contact(ca, pb + axis * t[:, None], geoms.params[ia, 0], rb)
+
+
+def _sphere_box(geoms, ia, ib, kin):
+  """Sphere (A) vs box (B): the closest point of the box when the centre is
+  outside; a centre inside resolves along the face of least penetration
+  (first match on ties, as an argmin), with a sign that is never 0 (a zero
+  normal would make the contact block singular)."""
+  r = geoms.params[ia, 0]
+  he = geoms.params[ib, :3]
+  _, c = _geom_pose(geoms, ia, kin)
+  Rb, pb = _geom_pose(geoms, ib, kin)
+  cl = (Rb.transpose(-1, -2) @ (c - pb).unsqueeze(-1)).squeeze(-1)   # box frame
+  clamped = torch.minimum(torch.maximum(cl, -he), he)
+  delta = cl - clamped
+  dist = torch.sqrt(torch.sum(delta * delta, -1) + 1e-18)
+  outside = dist > 1e-9
+  n_out = delta / dist[:, None]
+  face_pen = he - cl.abs()                                  # >= 0 when inside
+  is0 = (face_pen[:, 0] <= face_pen[:, 1]) & (face_pen[:, 0] <= face_pen[:, 2])
+  is1 = ~is0 & (face_pen[:, 1] <= face_pen[:, 2])
+  k = torch.where(is0, 0, torch.where(is1, 1, 2))
+  pen_k = face_pen.gather(1, k[:, None])[:, 0]
+  sgn = torch.where(cl >= 0.0, 1.0, -1.0).to(cl.dtype)
+  n_in = sgn * torch.nn.functional.one_hot(k, 3).to(cl.dtype)
+  n_local = torch.where(outside[:, None], n_out, n_in)
+  depth = torch.where(outside, r - dist, r + pen_k)
+  surf = torch.where(outside[:, None], clamped, cl + n_in * pen_k[:, None])
+  n = (Rb @ n_local.unsqueeze(-1)).squeeze(-1)
+  pos = pb + (Rb @ surf.unsqueeze(-1)).squeeze(-1)
+  return [(pos, n, depth, depth > 0)]
+
+
+# broad phase: a masked AABB overlap test per bounded pair
+
+_AABB_BIG = 3e38
+
+
+def geom_aabb(geoms: GeomTable, gi: int, kin):
+  """World-frame AABB (lo, hi), each (B, 3), of geom gi: a sphere, box or
+  capsule; planes and heightmaps are unbounded."""
+  gt = geoms.gtype[gi]
+  R, p = _geom_pose(geoms, gi, kin)
+  if gt in (GEOM_PLANE, GEOM_HEIGHTMAP):
+    return torch.full_like(p, -_AABB_BIG), torch.full_like(p, _AABB_BIG)
+  if gt == GEOM_SPHERE:
+    e = geoms.params[gi, 0].expand(p.shape)
+  elif gt == GEOM_BOX:
+    e = (R.abs() @ geoms.params[gi, :3].unsqueeze(-1)).squeeze(-1)
+  elif gt == GEOM_CAPSULE:
+    e = R[:, :, 2].abs() * geoms.params[gi, 1] + geoms.params[gi, 0]
+  else:
+    raise _unported(gt, gt)
+  return p - e, p + e
+
+
+def broadphase_mask(geoms: GeomTable, pairs: tuple, kin):
+  """Per pair: True (no operation) against an unbounded geom (plane,
+  heightmap), else a (B,) bool tensor, whether the two AABBs overlap. The
+  pair list stays static; the mask gates the narrow phase's `active`."""
+  boxes = {}
+  masks = []
+  unbounded = (GEOM_PLANE, GEOM_HEIGHTMAP)
+  for ia, ib in pairs:
+    if geoms.gtype[ia] in unbounded or geoms.gtype[ib] in unbounded:
+      masks.append(True)
+      continue
+    for g in (ia, ib):
+      if g not in boxes:
+        boxes[g] = geom_aabb(geoms, g, kin)
+    (lo_a, hi_a), (lo_b, hi_b) = boxes[ia], boxes[ib]
+    masks.append(((lo_a <= hi_b) & (lo_b <= hi_a)).all(-1))
+  return masks
+
+
 # grouped kernels: every pair of one type in a few batched ops
 
 def _group_poses(geoms: GeomTable, idxs, kin):
@@ -267,11 +381,15 @@ _BATCHED = {
     (GEOM_CAPSULE, GEOM_PLANE): (_b_capsule_plane, 2),
     (GEOM_BOX, GEOM_PLANE): (_b_box_plane, 8),
 }
-# the single-pair forms, slot for slot the same as the grouped ones
+# the single-pair forms: for the plane pairs slot for slot the same as the
+# grouped ones; the sphere pairs run only in this form
 SINGLE = {
     (GEOM_SPHERE, GEOM_PLANE): _sphere_plane,
     (GEOM_BOX, GEOM_PLANE): _box_plane,
     (GEOM_CAPSULE, GEOM_PLANE): _capsule_plane,
+    (GEOM_SPHERE, GEOM_SPHERE): _sphere_sphere,
+    (GEOM_SPHERE, GEOM_BOX): _sphere_box,
+    (GEOM_SPHERE, GEOM_CAPSULE): _sphere_capsule,
 }
 
 
@@ -279,9 +397,11 @@ def collide(geoms: GeomTable, pairs: tuple, kin, heightmap=None) -> ContactSet:
   """Run all pair kernels and assemble the padded ContactSet; `heightmap` is
   the scene's HeightField (ops/heightmap.py) when it has heightmap pairs.
 
-  Pairs are computed group by type and restored to the canonical per-pair
-  slot order by one static permutation, so the solver's row order
-  (the Gauss-Seidel sweep order) is the JAX package's."""
+  Plane and heightmap pairs are computed group by type, the sphere pairs one
+  by one with the broad phase's mask ANDed into their `active`; all slots
+  are restored to the canonical per-pair slot order by one static
+  permutation, so the solver's row order (the Gauss-Seidel sweep order) is
+  the JAX package's."""
   from raisimlib_torch.ops import heightmap as hm
 
   B = kin.p.shape[0]
@@ -292,7 +412,7 @@ def collide(geoms: GeomTable, pairs: tuple, kin, heightmap=None) -> ContactSet:
   for ia, ib in pairs:
     key = (geoms.gtype[ia], geoms.gtype[ib])
     on_field = key[1] == GEOM_HEIGHTMAP and tuple(sorted(key)) in _PAIR_SLOTS
-    if key not in _BATCHED and not on_field:
+    if key not in _BATCHED and key not in SINGLE and not on_field:
       raise _unported(*key)
     if on_field and heightmap is None:
       raise ValueError("the scene has heightmap pairs but no heightmap was given")
@@ -304,14 +424,28 @@ def collide(geoms: GeomTable, pairs: tuple, kin, heightmap=None) -> ContactSet:
     mat_a += [geoms.material[ia]] * ns
     mat_b += [geoms.material[ib]] * ns
 
-  # every ported pair is a body-attached geom against the static plane or
-  # heightmap (candidate_pairs skips static-static pairs), so all run grouped
+  # a plane or heightmap pair has a body-attached geom on its A side
+  # (candidate_pairs skips static-static pairs), so it runs grouped
+  bp = broadphase_mask(geoms, pairs, kin)
   groups = {}
+  singles = []
   for pi, (ia, ib) in enumerate(pairs):
-    groups.setdefault((geoms.gtype[ia], geoms.gtype[ib]), []).append((pi, ia, ib))
+    key = (geoms.gtype[ia], geoms.gtype[ib])
+    if key in _BATCHED or key[1] == GEOM_HEIGHTMAP:
+      groups.setdefault(key, []).append((pi, ia, ib))
+    else:
+      singles.append((pi, ia, ib))
 
   pos_c, nrm_c, dep_c, act_c = [], [], [], []
   computed = []
+  for pi, ia, ib in singles:
+    for si, (pos, nrm, dep, val) in enumerate(
+        SINGLE[(geoms.gtype[ia], geoms.gtype[ib])](geoms, ia, ib, kin)):
+      pos_c.append(pos[:, None])
+      nrm_c.append(nrm[:, None])
+      dep_c.append(dep[:, None])
+      act_c.append((val & bp[pi])[:, None].to(dtype))
+      computed.append(slot_of_pair[pi] + si)
   for key, entries in groups.items():
     if key[1] == GEOM_HEIGHTMAP:
       ns = _PAIR_SLOTS[tuple(sorted(key))]

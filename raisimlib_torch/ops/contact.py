@@ -129,6 +129,12 @@ def cone_solve(G, c, mu, config: SolverConfig = SolverConfig()):
   t_norm = torch.sqrt(ls0 * ls0 + ls1 * ls1 + 1e-20)
   stick_ok = ((ls2 > 0.0) & (t_norm <= mu1 * ls2)) | (mu1 > 1e6)
   open_ok = cs[2] >= 0.0
+  lam_stick = torch.cat([ls0, ls1, ls2], 1)
+  # without a graph to build, skip the slip search when no world slips (one
+  # host read; the result is the same)
+  if (not (torch.is_grad_enabled() and (G.requires_grad or c.requires_grad))
+      and bool((stick_ok | open_ok).all())):
+    return torch.where(stick_ok, lam_stick, torch.zeros_like(lam_stick))
 
   n = config.n_grid
   dtheta = 2.0 * math.pi / n
@@ -159,7 +165,6 @@ def cone_solve(G, c, mu, config: SolverConfig = SolverConfig()):
   s_safe = torch.where(any_feas, s_best, -cs[2] / (Gs[2][2] + 1e-20))
   lam_slip = torch.cat([torch.where(any_feas, s_safe * d0, 0.0),
                         torch.where(any_feas, s_safe * d1, 0.0), s_safe], 1)
-  lam_stick = torch.cat([ls0, ls1, ls2], 1)
   return torch.where(stick_ok, lam_stick,
                      torch.where(open_ok, torch.zeros_like(lam_slip), lam_slip))
 

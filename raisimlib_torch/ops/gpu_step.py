@@ -1,17 +1,20 @@
 """Fused full physics step (K1): one CUDA kernel launch per step, and its twin.
 
-Counterpart of raisimlib_tpu/ops/pallas_step.py for two of its scene
+Counterpart of raisimlib_tpu/ops/pallas_step.py for three of its scene
 classes: FREE, REVOLUTE, PRISMATIC and SPHERICAL joints and joint-limit rows,
 with sphere centres, capsule endpoints and box corners as contact points
-against the ground plane (K1a, `plane_pt` slots) or against a heightmap (K1c,
-`hm_pt` slots: heightmap._point_contact, riser march included). Per world
-the step runs
+against the ground plane (K1a, `plane_pt` slots), a sphere against a sphere,
+a box or a capsule, each on a body or static (K1b, `ss`, `sb` and `sc` slots:
+collision's pair kernels, the sphere-box interior branch included), and
+points against a heightmap (K1c, `hm_pt` slots: heightmap._point_contact,
+riser march included). Per world the step runs
 
     A.   feedforward + implicit PD torque, clamped
     B/C. forward kinematics and the RNEA bias h
     D.   the CRBA mass matrix (+ dt kd on the diagonal) and its Cholesky factor
-    E.   contact rows (plane: static frame t1 = +y, t2 = -x, n = +z; heightmap:
-         the probe's normal and pipeline._tangent_frames' frame) and limit rows
+    E.   contact rows (plane: static frame t1 = +y, t2 = -x, n = +z; heightmap
+         and sphere pairs: the runtime normal and pipeline._tangent_frames'
+         frame; the Jacobian of v(A) - v(B)) and limit rows
     F.   triangular solves of [J^T | rhs0]: the rows of W = J M^-1 and v_free
     G.   the hoisted 3x3 blocks Gii and c0 of each cone, and of each limit row
     H.   Gauss-Seidel sweeps over the cones (exact cone solve), then the limits
@@ -179,7 +182,8 @@ def _skew(v):
           (_neg(v[1]), v[0], 0.0))
 
 
-_Z3 = ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+_ZV = (0.0, 0.0, 0.0)
+_Z3 = (_ZV, _ZV, _ZV)
 _I3 = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
 
 
@@ -289,17 +293,33 @@ def _rodrigues(axis, c, s):
 
 
 class _Slot(NamedTuple):
-  """One contact slot: a feature point (body_a frame, static `local`) + sphere
-  radius (sphere centres, capsule endpoints, box corners with radius 0).
-  `kind` "plane_pt" is against the static plane z = plane_h, with the static
-  contact frame t1 = +y, t2 = -x, n = +z; "hm_pt" is against the heightmap,
-  with the probe's runtime normal and frame."""
+  """One contact slot. A side: a feature point or sphere centre at the static
+  offset `local` in body_a's frame (body_a = -1: the world frame), with a
+  sphere radius (0 for a box corner). `kind` selects the narrow phase:
+
+    "plane_pt": against the static plane z = plane_h, with the static
+                contact frame t1 = +y, t2 = -x, n = +z;
+    "hm_pt":    against the heightmap, with the probe's runtime normal;
+    "ss":       against a sphere of radius rb at offset b_pos on body_b;
+    "sb":       against a box of half extents he at (b_pos, b_rot) on body_b,
+                the interior branch included (collision._sphere_box);
+    "sc":       against a capsule at (b_pos, b_rot) on body_b, he = (rb, hl,
+                0) (collision._sphere_capsule).
+
+  body_b = -1 for the plane, the heightmap and a static world geom, whose
+  b_pos and b_rot are then world coordinates. The sphere pairs take their
+  frame from the runtime normal."""
 
   kind: str
   body_a: int
+  body_b: int
   local: tuple
   radius: float
   plane_h: float
+  rb: float
+  he: tuple
+  b_pos: tuple
+  b_rot: tuple
   mu: float
   e: float
   thresh: float
@@ -371,8 +391,9 @@ def _host(x) -> np.ndarray:
   return x.detach().cpu().double().numpy()
 
 
-_UNSUPPORTED_PAIR = ("runtime-frame pairs (K1b) are not ported to the fused "
-                     "kernel: ROADMAP.md item 10")
+_UNSUPPORTED_PAIR = ("box-box, capsule-capsule and the support-function pairs "
+                     "are not ported, and are not in the fused kernel's class: "
+                     "ROADMAP.md item 13")
 _UNSUPPORTED_HM = ("cylinder, cone and mesh against the heightmap are not "
                    "ported to the fused kernel: ROADMAP.md item 13")
 
@@ -415,7 +436,8 @@ def _analyze_field(scene, field) -> _HmStatic:
 
 def _analyze(scene, config, use_pd: bool) -> _StaticData:
   """Concretize the scene to static kernel data; raise FusedStepUnsupported
-  for anything outside the kernel's scene classes (K1a, K1c "hm_pt")."""
+  for anything outside the kernel's scene classes (K1a "plane_pt", K1b "ss",
+  "sb", "sc", K1c "hm_pt")."""
   model = scene.model
   for jt in model.joint_types:
     if JointType(jt) not in (JointType.FREE, JointType.REVOLUTE,
@@ -437,20 +459,36 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
   for ia, ib in scene.pairs:
     ta, tb = geoms.gtype[ia], geoms.gtype[ib]
     names = (coll.GEOM_NAMES.get(ta, ta), coll.GEOM_NAMES.get(tb, tb))
+    ba, bb = geoms.body[ia], geoms.body[ib]
+    mu, e, th = (float(x) for x in mats[geoms.material[ia], geoms.material[ib]])
+    pa, oa, ra_ = params[ia], opos[ia], orot[ia]
+    pb, ob, rb_ = params[ib], opos[ib], orot[ib]
+    # the sphere pairs, exactly as the JAX package's _analyze emits them
+    if (ta, tb) == (coll.GEOM_SPHERE, coll.GEOM_SPHERE):
+      slots.append(_Slot("ss", ba, bb, _np_v(oa), float(pa[0]), 0.0, float(pb[0]), _ZV,
+                         _np_v(ob), _I3, mu, e, th))
+      continue
+    if (ta, tb) == (coll.GEOM_SPHERE, coll.GEOM_BOX):
+      slots.append(_Slot("sb", ba, bb, _np_v(oa), float(pa[0]), 0.0, 0.0, _np_v(pb[:3]),
+                         _np_v(ob), _np_m(rb_), mu, e, th))
+      continue
+    if (ta, tb) == (coll.GEOM_SPHERE, coll.GEOM_CAPSULE):
+      slots.append(_Slot("sc", ba, bb, _np_v(oa), float(pa[0]), 0.0, float(pb[0]),
+                         (float(pb[0]), float(pb[1]), 0.0), _np_v(ob), _np_m(rb_),
+                         mu, e, th))
+      continue
     if tb == coll.GEOM_HEIGHTMAP:
       kind, h = "hm_pt", 0.0
     elif tb == coll.GEOM_PLANE:
       kind, h = "plane_pt", float(params[ib, 0])
     else:
       raise FusedStepUnsupported(f"pair {names}: {_UNSUPPORTED_PAIR}")
-    ba = geoms.body[ia]
     if ba < 0:
       raise FusedStepUnsupported(f"static non-plane geom vs {names[1]}")
-    mu, e, th = (float(x) for x in mats[geoms.material[ia], geoms.material[ib]])
-    pa, oa, ra_ = params[ia], opos[ia], orot[ia]
 
     def point(local, radius):
-      slots.append(_Slot(kind, ba, _np_v(local), float(radius), h, mu, e, th))
+      slots.append(_Slot(kind, ba, -1, _np_v(local), float(radius), h, 0.0, _ZV,
+                         _ZV, _I3, mu, e, th))
 
     # slot counts and order as collision's plane kernels and
     # heightmap.collide_group
@@ -1224,6 +1262,51 @@ def _runtime_frame(K, n):
   return t1, _cross(n, t1)
 
 
+def _emit_sphere_pair(K, slot: _Slot, ca, Rbw, pbw):
+  """The sphere of centre ca and radius slot.radius against geom B of an
+  "ss", "sb" or "sc" slot, whose body has the pose (Rbw, pbw). Returns (pos,
+  normal (B -> A), depth): the JAX emitter's scalar port of
+  collision._sphere_sphere, _sphere_box and _sphere_capsule."""
+  clip = lambda x, lo, hi: K.minimum(K.maximum(x, lo), hi)   # noqa: E731
+  Rb = _mm(Rbw, slot.b_rot)                      # geom B's pose, world
+  pb = _vadd(pbw, _mv(Rbw, slot.b_pos))
+  if slot.kind != "sb":
+    if slot.kind == "sc":                        # clamp onto the segment
+      axis = tuple(Rb[k][2] for k in range(3))
+      hl = slot.he[1]
+      t_ = clip(_dot(_vsub(ca, pb), axis), -hl, hl)
+      cb = _vadd(pb, _vscale(t_, axis))
+    else:                                        # "ss": b_rot is the identity
+      cb = pb
+    d = _vsub(ca, cb)
+    dist = K.sqrt(_add(*[_mul(c, c) for c in d]) + 1e-18)
+    nrm = _vscale(1.0 / dist, d)
+    depth = _sub(slot.radius + slot.rb, dist)
+    return _vadd(cb, _vscale(_sub(slot.rb, 0.5 * depth), nrm)), nrm, depth
+  # "sb": the closest point of the box outside it; inside, the face of least
+  # penetration (first match on ties) with a sign that is never 0
+  cl = _mTv(Rb, _vsub(ca, pb))                   # sphere centre, box frame
+  he = slot.he
+  clamped = tuple(clip(cl[k], -he[k], he[k]) for k in range(3))
+  delta = _vsub(cl, clamped)
+  dist = K.sqrt(_add(*[_mul(c, c) for c in delta]) + 1e-18)
+  outside = dist > 1e-9
+  n_out = _vscale(1.0 / dist, delta)
+  fp = tuple(_sub(he[k], K.abs(cl[k])) for k in range(3))
+  is0 = (fp[0] <= fp[1]) & (fp[0] <= fp[2])
+  is1 = ~is0 & (fp[1] <= fp[2])
+  ind0, ind1 = K.to_float(is0), K.to_float(is1)
+  ind = (ind0, ind1, 1.0 - ind0 - ind1)
+  fp_k = _add(*[_mul(ind[k], fp[k]) for k in range(3)])
+  sgn = tuple(K.where(cl[k] >= 0.0, 1.0, -1.0) for k in range(3))
+  n_in = tuple(_mul(sgn[k], ind[k]) for k in range(3))
+  n_local = tuple(K.where(outside, n_out[k], n_in[k]) for k in range(3))
+  depth = K.where(outside, _sub(slot.radius, dist), _add2(slot.radius, fp_k))
+  surf = tuple(K.where(outside, clamped[k], _add2(cl[k], _mul(n_in[k], fp_k)))
+               for k in range(3))
+  return _vadd(pb, _mv(Rb, surf)), _mv(Rb, n_local), depth
+
+
 def _emit_step(sd: _StaticData, K, q, u, tau_in, pd_in):
   """Phases A-I for one world, on the values q (nq), u, tau_in, pd_in (nv;
   pd_in None without PD). Returns the lists (q', u')."""
@@ -1253,30 +1336,49 @@ def _emit_step(sd: _StaticData, K, q, u, tau_in, pd_in):
   L, invd = _emit_chol(K, nv, M)
 
   # ---- E. contact rows and limit rows. Plane: the static frame t1=+y,
-  #      t2=-x, n=+z (pipeline._tangent_frames for n = z); heightmap: the
-  #      probe's normal and its runtime frame ----
+  #      t2=-x, n=+z (pipeline._tangent_frames for n = z); heightmap and
+  #      sphere pairs: the runtime normal and its runtime frame ----
   ncone = len(sd.slots)
   nlim = len(sd.limits)
   Jrows = [dict() for _ in range(3 * ncone + nlim)]   # row -> {dof: scalar}
   bias = [0.0] * (3 * ncone + nlim)
   act = [None] * (ncone + nlim)
+
+  def body_pose(b):
+    """(R body -> world, p) of body b; the identity for b = -1 (the world)."""
+    if b < 0:
+      return _I3, (0.0, 0.0, 0.0)
+    return _mT(E0[b]), r0[b]
+
   for s_i, slot in enumerate(sd.slots):
     ba = slot.body_a
-    Ra, pa_ = _mT(E0[ba]), r0[ba]
+    Ra, pa_ = body_pose(ba)
     ca = _vadd(pa_, _mv(Ra, slot.local))         # feature point / centre, world
     if slot.kind == "plane_pt":
       depth = _sub(slot.plane_h + slot.radius, ca[2])
       pos = (ca[0], ca[1], _sub(ca[2], slot.radius))
       t1, t2, nrm = (0.0, 1.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.0, 1.0)
       act[s_i] = K.to_float(depth > 0.0)
-    else:                                        # "hm_pt"
+    elif slot.kind == "hm_pt":
       pos, nrm, depth, act[s_i] = _emit_hm_probe(sd.hm, K, ca, slot.radius)
       t1, t2 = _runtime_frame(K, nrm)
+    else:                                        # "ss", "sb", "sc"
+      pos, nrm, depth = _emit_sphere_pair(K, slot, ca, *body_pose(slot.body_b))
+      t1, t2 = _runtime_frame(K, nrm)
+      act[s_i] = K.to_float(depth > 0.0)
+    # the relative-velocity Jacobian v(A) - v(B): +1 on A's ancestor dofs,
+    # -1 on B's, and a dof both move drops out
+    cmap = {j: 1.0 for j in sd.anc_dofs[ba]} if ba >= 0 else {}
+    if slot.body_b >= 0:
+      for j in sd.anc_dofs[slot.body_b]:
+        cmap[j] = cmap.get(j, 0.0) - 1.0
     r_t1, r_t2, r_n = 3 * s_i, 3 * s_i + 1, 3 * s_i + 2
     vn_pre = 0.0
-    for j in sd.anc_dofs[ba]:
+    for j, cj in cmap.items():
+      if cj == 0.0:
+        continue
       ang, lin = Sw[j]
-      col = _vadd(lin, _cross(ang, pos))
+      col = _vscale(cj, _vadd(lin, _cross(ang, pos)))
       Jrows[r_t1][j] = _dot(col, t1)
       Jrows[r_t2][j] = _dot(col, t2)
       Jrows[r_n][j] = _dot(col, nrm)
@@ -1633,7 +1735,8 @@ class FusedStep:
 
 def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
   """Fused replacement for pipeline.step_batch on eligible scenes (K1a on a
-  plane, K1c on a heightmap).
+  plane, K1b for a sphere against a sphere, a box or a capsule, K1c on a
+  heightmap).
 
   Returns step(state, tau, pd_target, field_heights=None) -> State
   (pd_target ignored when use_pd=False). On a heightmap scene

@@ -24,6 +24,16 @@ The batched paths do not part from the reference in this window, unlike
 the balance golden's: the port's K2 twin in float32 on the CPU stays within
 1.8e-5 N m over all 80 steps, the reference step within 1.7e-5
 (tools/trot_golden_gate.py).
+
+tests/goldens/sphere_box_stack.npz holds 400 f64 reference steps (0.8 s) of
+the sphere-box stack (a box on the ground, a sphere on the box), the box
+kicked sideways at 0.3 m/s: it slides, sticks, and the stack settles. The
+observable is q; the JAX package's gate (tests/test_parity.py,
+TestSphereBoxStack) is max|dq| <= 1e-4 over the window and the resting
+heights (box z 0.15, sphere z 0.42) within 2e-3 at its end. It holds every
+step path, the batched ones included: on the CPU in float32 the K2 twin and
+the fused step's body stay within 4.4e-7 of the golden over all 400 steps
+(tools/stack_golden_gate.py), so the stack needs no two-part gate.
 """
 
 from __future__ import annotations
@@ -114,4 +124,29 @@ def trot_gate_failures(qs, us, g):
     out.append(f"only {frac:.1%} of applied-torque entries within {TORQUE_GATE} N m")
   if d.max() > TROT_TORQUE_CEILING:
     out.append(f"max|dtau| = {d.max():.3e} > {TROT_TORQUE_CEILING} N m")
+  return out
+
+
+STACK_REST = (0.15, 0.42)     # m: box z (q[2]) and sphere z (q[9]) at rest
+STACK_REST_TOL = 2e-3
+
+
+def stack_deviation(qs, g):
+  """Per step max |dq| against the stack golden, over the first len(qs)
+  steps."""
+  qs = np.asarray(qs, np.float64)
+  return np.abs(qs - np.asarray(g["q"])[:len(qs)]).max(1)
+
+
+def stack_gate_failures(qs, g):
+  """Messages for every breach of the stack gate (empty = pass); the resting
+  heights are checked when qs covers the whole window."""
+  dq = stack_deviation(qs, g)
+  out = []
+  if dq.max() > Q_GATE:
+    out.append(f"max|dq| = {dq.max():.3e} > {Q_GATE} (step {int(dq.argmax())})")
+  if len(qs) == len(g["q"]):
+    for name, k, z in (("box", 2, STACK_REST[0]), ("sphere", 9, STACK_REST[1])):
+      if abs(float(qs[-1][k]) - z) >= STACK_REST_TOL:
+        out.append(f"{name} rests at z = {float(qs[-1][k]):.5f}, not {z} +- {STACK_REST_TOL}")
   return out

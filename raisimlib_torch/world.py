@@ -1,13 +1,15 @@
 """World -> Scene: the public scene-building API of the port.
 
-Counterpart of the main-path part of raisimlib_tpu/world.py. `World.add_*`
-calls accumulate object specs on the host; `World.compile()` merges them into
-one forest `RobotModel` plus static geometry tables on the world's device and
+Counterpart of raisimlib_tpu/world.py for articulated systems, loose
+spheres, boxes (also static ones) and capsules, the ground plane and a
+heightmap. `World.add_*` calls accumulate object specs on the host;
+`World.compile()` merges them into one forest `RobotModel` (a loose body is a
+FREE-joint root) plus static geometry tables on the world's device and
 returns a `Scene`, whose `step` / `step_batch` advance states. A world holds
 at most one heightmap (`add_heightmap`); the compiled Scene carries it as
 `Scene.field`, and `Scene.replace(field=scene.field.replace(heights=h))`
-swaps in other heights. The other `add_*` objects, wires and pins are not
-ported yet (ROADMAP.md).
+swaps in other heights. Not ported yet (ROADMAP.md): cylinders, cones,
+meshes, compounds, wires and pins.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 from raisimlib_torch._device import check_matmul_precision, resolve_device
-from raisimlib_torch.models.model import RobotModel, build_model, joint_nq, joint_nv
+from raisimlib_torch.models.model import (JointType, RobotModel, build_model, joint_nq,
+                                          joint_nv)
 from raisimlib_torch.ops import collision as coll
 from raisimlib_torch.ops import constraints as cs
 from raisimlib_torch.ops import integrator
@@ -111,6 +114,53 @@ class World:
           offset_rot=np.asarray(g.get("offset_rot", np.eye(3)), dtype=np.float64),
           material=int(g.get("material", 0)), obj=obj))
     return h
+
+  def _add_free_body(self, name: str, mass: float, inertia, pos, gtype: int, params,
+                     material: int, rot=None) -> ObjectHandle:
+    """One FREE-joint body at `pos` (identity orientation) with one geom."""
+    spec = dict(parent=-1, joint=JointType.FREE, mass=mass, com=[0, 0, 0],
+                inertia=inertia, actuated=False, name=name,
+                q_init=list(pos) + [1.0, 0.0, 0.0, 0.0])
+    h = self.add_articulated_system([spec], name)
+    padded = np.zeros(4)
+    padded[:len(params)] = params
+    self._geoms.append(coll.GeomSpec(
+        h.body_start, gtype, padded, np.zeros(3),
+        np.eye(3) if rot is None else np.asarray(rot, np.float64), material))
+    return h
+
+  def add_sphere(self, radius: float, mass: float, name="sphere", material=0,
+                 pos=(0.0, 0.0, 1.0)) -> ObjectHandle:
+    """A loose sphere (RaiSim `World::addSphere`)."""
+    return self._add_free_body(name, mass, 0.4 * mass * radius * radius * np.eye(3), pos,
+                               coll.GEOM_SPHERE, [radius], material)
+
+  def add_box(self, half_extents, mass: float, name="box", material=0,
+              pos=(0.0, 0.0, 1.0), static: bool = False,
+              rot=None) -> Optional[ObjectHandle]:
+    """A box rigid body; its geom turned by `rot` in the body frame.
+    `static=True` makes it immovable world geometry at (pos, rot) with no
+    state (RaiSim's BodyType::STATIC: ramps, platforms, obstacles): it
+    collides with every dynamic geom, adds no dofs, and the call returns
+    None."""
+    hx, hy, hz = half_extents
+    if static:
+      self._geoms.append(coll.GeomSpec(
+          -1, coll.GEOM_BOX, np.array([hx, hy, hz, 0.0]), np.asarray(pos, np.float64),
+          np.eye(3) if rot is None else np.asarray(rot, np.float64), material))
+      return None
+    inertia = mass / 3.0 * np.diag([hy * hy + hz * hz, hx * hx + hz * hz, hx * hx + hy * hy])
+    return self._add_free_body(name, mass, inertia, pos, coll.GEOM_BOX, [hx, hy, hz],
+                               material, rot)
+
+  def add_capsule(self, radius: float, half_length: float, mass: float, name="capsule",
+                  material=0, pos=(0.0, 0.0, 1.0)) -> ObjectHandle:
+    """A loose capsule along its body z axis; its inertia is the solid
+    cylinder's of the same radius and length (the JAX package's)."""
+    r2, length = radius * radius, 2.0 * half_length
+    ixx = mass * (3.0 * r2 + length * length) / 12.0
+    return self._add_free_body(name, mass, np.diag([ixx, ixx, 0.5 * mass * r2]), pos,
+                               coll.GEOM_CAPSULE, [radius, half_length], material)
 
   def add_ground(self, height: float = 0.0, material: int = 0) -> None:
     self._geoms.append(coll.GeomSpec(-1, coll.GEOM_PLANE,

@@ -1,6 +1,7 @@
 """Tests that need the card: the hand-written CUDA kernels (K2, and the fused
-step K1 on the plane and on a heightmap) against their plain PyTorch twins
-on the GPU. They skip without a CUDA device. JAX is not needed,
+step K1 on the plane, on a heightmap and with the sphere pairs) against
+their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
+is not needed,
 so on the GPU machine they run without the JAX test configuration:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -117,3 +118,45 @@ def test_terrain_fused_step_kernel_matches_plain_twin():
     du = (sk.u - up).abs().amax(1).cpu().numpy()
     assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
     assert dq.max() <= 5e-4 and du.max() <= 5e-3
+
+
+@pytest.mark.cuda
+def test_k1b_fused_step_kernel_matches_plain_twin():
+  """K1b (the sphere pairs) against `_fused_plain` on the card, B = 1037:
+  the sphere-box stack settled (the golden's step 300) with its box kicked
+  0.3 m/s, and a sphere on a static box ("sb" with body_b = -1), both with
+  noise (1e-3 on q, 1e-2 on u). The tiers of the plane case."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  import importlib.util
+  import os
+
+  import numpy as np
+
+  from raisimlib_torch.ops import gpu_step
+
+  path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "chip_smoke.py")
+  spec = importlib.util.spec_from_file_location("chip_smoke", path)
+  cs = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(cs)
+  g = load_golden("sphere_box_stack.npz")
+  B = 1037
+  for scene in (cs.stack_scene(torch, device="cuda"), cs.static_box_scene(torch, device="cuda")):
+    step = gpu_step.make_step_batch_fused(scene, use_pd=False)
+    s = cs.loose_states(torch, scene, B, seed=23)
+    if scene.model.nq == 14:                        # the stack: start from the settled state
+      s.q += torch.tensor(g["q"][300] - g["q0"], dtype=torch.float32, device="cuda")
+      s.u[:, 3] += 0.3
+    tau = torch.zeros_like(s.u)
+    n0 = gpu_step.make_step_batch_fused.launches
+    with torch.inference_mode():
+      sk = step(s, tau)
+      qp, up = gpu_step._fused_plain(step.sd, s.q, s.u, tau)
+    torch.cuda.synchronize()
+    assert gpu_step.make_step_batch_fused.launches == n0 + 1
+    dq = (sk.q - qp).abs().amax(1).cpu().numpy()
+    du = (sk.u - up).abs().amax(1).cpu().numpy()
+    assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
+    assert dq.max() <= 5e-4 and du.max() <= 5e-3
+    assert np.isfinite(dq).all()

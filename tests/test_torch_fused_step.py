@@ -12,6 +12,9 @@ make_step_batch_fused on CPU tensors, against the JAX package.
     CUDA source: deterministic, float32 literals, the twin's operation
     tally, and its body, compiled as host C++, against the twin; the last
     two also for ANYmal on a heightmap (K1c).
+  * K1b (a sphere against a sphere, a box or a capsule): the slots of JAX's
+    _analyze, the twin against the port's K2 path (static geoms and a
+    shared root included), the tally and the host-compiled body.
 
 JAX scenes cross over through convert.scene_from_numpy."""
 
@@ -23,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (flatten_jax_scene, jax_anymal_scene, load_golden,
+from torch_port_util import (flatten_jax_scene, host_step, jax_anymal_scene, load_golden,
                              perturbed_states, torch_anymal_scene)
 
 from raisimlib_tpu.models.model import JointType
@@ -253,12 +256,13 @@ def test_gradients_equal_step_batch():
     np.testing.assert_allclose(gf.numpy(), gp.numpy(), rtol=1e-12, atol=1e-12)
 
 
-def _stack_scene():
-  """Sphere resting on a sphere: a runtime-frame pair outside K1a."""
+def _ineligible_scene():
+  """A box resting on a box: box-box has no K1 slot (nor a port narrow
+  phase yet: ROADMAP.md item 13)."""
   world = JWorld(dt=0.002, dtype=jnp.float64)
   world.add_ground()
-  world.add_sphere(0.1, 1.0, pos=(0.0, 0.0, 0.1), name="a")
-  world.add_sphere(0.1, 1.0, pos=(0.0, 0.0, 0.3), name="b")
+  world.add_box((0.1, 0.1, 0.1), 1.0, pos=(0.0, 0.0, 0.1), name="a")
+  world.add_box((0.1, 0.1, 0.1), 1.0, pos=(0.0, 0.0, 0.3), name="b")
   return _port(world.compile(joint_limits=False), torch.float64)
 
 
@@ -266,8 +270,8 @@ def test_require_raises_and_auto_warns_on_ineligible_scene(monkeypatch):
   from raisimlib_torch.mpc import state_map
   from raisimlib_torch.ops import gpu_step
 
-  ts = _stack_scene()
-  with pytest.raises(gpu_step.FusedStepUnsupported, match="ROADMAP.md item 10"):
+  ts = _ineligible_scene()
+  with pytest.raises(gpu_step.FusedStepUnsupported, match="ROADMAP.md item 13"):
     state_map.make_contact_dyn_batch(ts, 0.002, 1, use_pd=False, fused="require")
   with pytest.raises(ValueError, match="fused="):
     state_map.make_contact_dyn_batch(ts, 0.002, 1, use_pd=False, fused="always")
@@ -408,64 +412,18 @@ def test_terrain_kernel_tally_equals_twin(trot_sd):
   assert loads == 4 * (4 * 17 + 8)
 
 
-_HOST_PRE = r"""
-#include <math.h>
-#include <stddef.h>
-#define __device__
-#define __forceinline__ inline
-#define __ldg(p) (*(p))
-static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
-"""
-_HOST_POST = r"""
-extern "C" void host_step(const float* q, const float* u, const float* tau, const float* pd,
-                          const float* hts, long long hts_stride, float* qo, float* uo, int B) {
-  for (int b = 0; b < B; ++b)
-    fs_body(q + (size_t)b * FS_NQ, u + (size_t)b * FS_NV, tau + (size_t)b * FS_NV,
-            pd + (size_t)b * FS_NV, hts ? hts + (size_t)b * hts_stride : NULL,
-            qo + (size_t)b * FS_NQ, uo + (size_t)b * FS_NV);
-}
-"""
-
-
-def _host_step(sd, tmp_path):
-  """The generated body (`fs_body`, the kernel minus its CUDA frame) built
-  as host C++ without FMA contraction; skips without a host compiler."""
-  import ctypes
-  import shutil
-  import subprocess
-
-  from raisimlib_torch import _build
-  from raisimlib_torch.ops import gpu_step
-
-  cxx = shutil.which("g++")
-  if cxx is None:
-    pytest.skip("needs a host C++ compiler")
-  src = gpu_step.kernel_source(sd)[0]
-  src = src.replace("#include <cuda_runtime.h>", "").replace('#include "fused_step.cuh"', "")
-  cpp, lib = tmp_path / "fused_host.cpp", tmp_path / "fused_host.so"
-  cpp.write_text(_HOST_PRE + src + _HOST_POST)
-  r = subprocess.run([cxx, "-O1", "-ffp-contract=off", "-w", "-shared", "-fPIC",
-                      "-I", _build.CSRC, "-o", str(lib), str(cpp)],
-                     capture_output=True, text=True, timeout=300)
-  assert r.returncode == 0, r.stderr[:3000]
-  host = ctypes.CDLL(str(lib))
-  host.host_step.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                             + [ctypes.c_void_p] * 2 + [ctypes.c_int])
-  return host.host_step
-
-
-def _host_matches_twin(sd, host_step, q, u, pd, heights=None):
+def _host_matches_twin(sd, host, q, u, pd, heights=None, median_du=1e-6):
   """The host-compiled body and the twin on the same worlds: the card's two
   tiers (99% of worlds within 2e-5 on q and 2e-4 on u, all within 5e-4 and
-  5e-3), and the median world within 1e-6 on u."""
+  5e-3), and the median world within `median_du` on u."""
   from raisimlib_torch.ops import gpu_step
 
   B = q.shape[0]
   ins = [np.ascontiguousarray(x, np.float32) for x in (q, u, np.zeros_like(pd), pd)]
   hts = None if heights is None else np.ascontiguousarray(heights, np.float32)
   qo, uo = np.zeros_like(ins[0]), np.zeros_like(ins[1])
-  host_step(*(x.ctypes.data for x in ins), None if hts is None else hts.ctypes.data,
-            0 if hts is None else hts[0].size, qo.ctypes.data, uo.ctypes.data, B)
+  host(*(x.ctypes.data for x in ins), None if hts is None else hts.ctypes.data,
+       0 if hts is None else hts[0].size, qo.ctypes.data, uo.ctypes.data, B)
   with torch.inference_mode():
     qp, up = gpu_step._fused_plain(sd, *(torch.tensor(x) for x in ins),
                                    heights=None if hts is None else torch.tensor(hts))
@@ -473,7 +431,7 @@ def _host_matches_twin(sd, host_step, q, u, pd, heights=None):
   du = np.abs(uo - up.numpy()).max(1)
   assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
   assert dq.max() <= 5e-4 and du.max() <= 5e-3
-  assert np.median(du) <= 1e-6
+  assert np.median(du) <= median_du
 
 
 def test_kernel_body_compiled_on_host_matches_twin(anymal_sd, tmp_path):
@@ -483,7 +441,7 @@ def test_kernel_body_compiled_on_host_matches_twin(anymal_sd, tmp_path):
   that the Gauss-Seidel sweeps can amplify (see _host_matches_twin)."""
   g = load_golden()
   q, u = perturbed_states(g, 64, seed=8)
-  _host_matches_twin(anymal_sd, _host_step(anymal_sd, tmp_path), q, u,
+  _host_matches_twin(anymal_sd, host_step(anymal_sd, tmp_path), q, u,
                      np.tile(g["pd_targets"][0], (64, 1)))
 
 
@@ -496,5 +454,185 @@ def test_terrain_kernel_body_compiled_on_host_matches_twin(trot_sd, tmp_path):
   rng = np.random.RandomState(9)
   q, u = perturbed_states(g, 64, seed=9)
   hts = g["heights"][None] + 0.02 * rng.randn(64, 48, 24)
-  _host_matches_twin(sd, _host_step(sd, tmp_path), q, u,
+  _host_matches_twin(sd, host_step(sd, tmp_path), q, u,
                      np.tile(g["pd_targets"][0], (64, 1)), hts)
+
+
+# ---- K1b: a sphere against a sphere, a box or a capsule ------------------------
+
+
+def _chip_smoke():
+  import importlib.util
+  import os
+
+  path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "chip_smoke.py")
+  spec = importlib.util.spec_from_file_location("chip_smoke", path)
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
+def _loose_scene(name, dtype):
+  """chip_smoke.py's three K1b scenes; a sphere on a static sphere ("ss"
+  with body_a = -1); a sphere on a grandchild link touching its own root's
+  box ("sb" whose two sides share the root's six dofs)."""
+  from raisimlib_torch.models.model import JointType as TJ
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.world import World
+
+  cs = _chip_smoke()
+  make = {"stack": cs.stack_scene, "spheres_capsule": cs.spheres_capsule_scene,
+              "static_box": cs.static_box_scene}
+  if name in make:
+    return make[name](torch, device="cpu", dtype=dtype)
+  if name == "static_sphere":
+    w = World(dt=0.002, dtype=dtype, device="cpu")
+    w.add_ground()
+    # static world spheres have no add_* call (nor in the JAX package): the
+    # geom goes in directly, before the dynamic sphere, so it is the pair's A
+    w._geoms.append(coll.GeomSpec(-1, coll.GEOM_SPHERE, np.array([0.1, 0.0, 0.0, 0.0]),
+                                  np.array([0.0, 0.0, 0.1]), np.eye(3), 0))
+    w.add_sphere(0.1, 1.0, pos=(0.03, 0.0, 0.3))
+    return w.compile(joint_limits=False)
+  w = World(dt=0.002, dtype=dtype, self_collision=True, device="cpu")
+  w.add_ground()
+  link = dict(joint=TJ.REVOLUTE, axis=[0, 1, 0], mass=0.3, inertia=0.002 * np.eye(3),
+              com=[0.05, 0.0, 0.0], actuated=False)
+  w.add_articulated_system(
+      [dict(parent=-1, joint=TJ.FREE, mass=2.0, inertia=0.02 * np.eye(3), name="base",
+            actuated=False, q_init=[0, 0, 0.2, 1, 0, 0, 0]),
+       dict(link, parent=0, pos=[0.1, 0.0, 0.15], name="l1"),
+       dict(link, parent=1, pos=[0.1, 0.0, 0.0], name="l2")],
+      name="arm", geoms=[dict(body=0, gtype=coll.GEOM_BOX, params=[0.15, 0.1, 0.1]),
+                         dict(body=2, gtype=coll.GEOM_SPHERE, params=[0.05],
+                              offset_pos=[-0.1, 0.0, -0.05])])
+  return w.compile(joint_limits=False)
+
+
+LOOSE = ["stack", "spheres_capsule", "static_box", "static_sphere", "shared_root"]
+# states with every sphere pair in contact: the stack settled (the golden's
+# step 300) with its box kicked; chip_smoke.py's touching states of its other
+# two scenes; the sphere on the static sphere; the arm as built (its sphere
+# on the box's top face)
+_CONTACT_Q = dict(
+    _chip_smoke().CONTACT_Q,
+    static_sphere=[0.03, 0.0, 0.1 + float(np.sqrt(0.04 - 0.0009)) - 0.001, 1, 0, 0, 0])
+
+
+def _contact_states(scene, name, B, seed, dq=1e-3, du=1e-2):
+  m = scene.model
+  if name == "stack":
+    g = load_golden("sphere_box_stack.npz")
+    q0, u0 = g["q"][300], g["u"][300] + 0.3 * np.eye(12)[3]
+  else:
+    q0 = np.asarray(_CONTACT_Q.get(name, m.q_init.numpy()), np.float64)
+    u0 = np.zeros(m.nv)
+  rng = np.random.RandomState(seed)
+  q = np.tile(q0[None], (B, 1)) + dq * rng.randn(B, m.nq)
+  for b in range(m.nb):
+    if JointType(m.joint_types[b]) == JointType.FREE:
+      qa = m.q_adr[b] + 3
+      q[:, qa:qa + 4] /= np.linalg.norm(q[:, qa:qa + 4], axis=1, keepdims=True)
+  return q, u0[None] + du * rng.randn(B, m.nv)
+
+
+@pytest.mark.parametrize("name", ["stack", "spheres_capsule"])
+def test_k1b_slots_match_jax(name):
+  """The JAX package's own K1b scenes (tests/test_pallas_step.py,
+  TestRuntimeFramePairs), carried over by convert.scene_from_numpy: the
+  port's _analyze emits JAX's slots, field for field and in pair order."""
+  from raisimlib_tpu.ops import pallas_step
+  from raisimlib_tpu.ops import pipeline as jp
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops import pipeline as tp
+
+  world = JWorld(dt=0.002, dtype=jnp.float64)
+  world.add_ground()
+  if name == "stack":
+    world.add_box((0.1, 0.1, 0.1), 2.0, pos=(0.0, 0.0, 0.1))
+    world.add_sphere(0.08, 1.0, pos=(0.02, 0.0, 0.29))
+    kinds = ["plane_pt"] * 9 + ["sb"]
+  else:
+    world.add_sphere(0.1, 1.0, pos=(0.0, 0.0, 0.11), name="a")
+    world.add_sphere(0.1, 1.0, pos=(0.12, 0.0, 0.28), name="b")
+    world.add_capsule(0.06, 0.15, 0.5, pos=(1.0, 0.0, 0.07), name="c")
+    kinds = ["plane_pt"] * 4 + ["sc"] * 2 + ["ss"]
+  js = world.compile(joint_limits=False)
+  jslots = pallas_step._analyze(js, jp.StepConfig(), use_pd=False).slots
+  tslots = gpu_step._analyze(_port(js, torch.float64), tp.StepConfig(), False).slots
+  assert sorted(s.kind for s in tslots) == kinds
+  assert len(tslots) == len(jslots)
+  for ts_, js_ in zip(tslots, jslots):
+    for f in gpu_step._Slot._fields:
+      assert getattr(ts_, f) == getattr(js_, f), (f, getattr(ts_, f), getattr(js_, f))
+
+
+@pytest.mark.parametrize("name", LOOSE)
+def test_k1b_twin_matches_k2_path(name):
+  """The twin on the K1b scenes, 2 steps of 4 worlds with every sphere pair
+  in contact, against the port's K2 path (pipeline.step_batch, the same cone
+  algorithm), f64: only the assembly differs, so float64 rounding alone
+  separates them, 1e-10. The static cases are the world-frame pose of body
+  -1 in phase E; the arm's sphere-box Jacobian drops the shared root dofs."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops import pipeline as tp
+  from raisimlib_torch.ops.integrator import State
+
+  ts = _loose_scene(name, torch.float64)
+  step = gpu_step.make_step_batch_fused(ts, use_pd=False)
+  k1b = [i for i, s in enumerate(step.sd.slots) if s.kind in ("ss", "sb", "sc")]
+  assert k1b
+  q, u = _contact_states(ts, name, 4, seed=14)
+  kin = dynamics.fk(ts.model, torch.tensor(q))
+  active = coll.collide(ts.geoms, ts.pairs, kin).active[:, k1b]
+  assert bool((active.sum(0) > 0).all()), active       # every sphere pair touches
+  if name == "shared_root":
+    (slot,) = [step.sd.slots[i] for i in k1b]
+    assert (slot.body_a, slot.body_b) == (2, 0)
+  tau = torch.zeros((4, ts.model.nv), dtype=torch.float64)
+  s1 = s2 = State(q=torch.tensor(q), u=torch.tensor(u), t=torch.zeros(4, dtype=torch.float64))
+  with torch.inference_mode():
+    for _ in range(2):
+      s1 = step(s1, tau)
+      s2 = tp.step_batch(ts, s2, tau)
+  np.testing.assert_allclose(s1.q.numpy(), s2.q.numpy(), rtol=0, atol=1e-10)
+  np.testing.assert_allclose(s1.u.numpy(), s2.u.numpy(), rtol=0, atol=1e-10)
+
+
+def test_k1b_tally_equals_twin():
+  """The K1b sources (the stack, and the spheres with the capsule) tally
+  the operations their twins run."""
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops import pipeline as tp
+
+  for name in ("stack", "spheres_capsule"):
+    ts = _loose_scene(name, torch.float32)
+    sd = gpu_step._analyze(ts, tp.StepConfig(), False)
+    _, ops, loads = gpu_step.kernel_source(sd)
+    q, u = _contact_states(ts, name, 1, seed=15)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)   # noqa: E731
+    with torch.inference_mode():
+      *_, twin_ops = gpu_step._fused_plain(sd, f32(q), f32(u), torch.zeros((1, ts.model.nv)),
+                                           return_ops=True)
+    assert (ops, loads) == (twin_ops, 0)
+    assert 1e5 < ops < 4e5
+
+
+@pytest.mark.parametrize("name", ["stack", "spheres_capsule", "static_box"])
+def test_k1b_body_compiled_on_host_matches_twin(name, tmp_path):
+  """K1b's body compiled as host C++ against the twin on 32 worlds with the
+  sphere pairs in contact, at the tiers of _host_matches_twin; the median
+  world within 5e-6 on u: each sphere pair's runtime frame takes an rsqrt,
+  which the host computes as 1/sqrt, an ulp off, and the sliding box's slip
+  searches amplify it more often than ANYmal's static-frame contacts do."""
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops import pipeline as tp
+
+  ts = _loose_scene(name, torch.float32)
+  sd = gpu_step._analyze(ts, tp.StepConfig(), False)
+  q, u = _contact_states(ts, name, 32, seed=16)
+  _host_matches_twin(sd, host_step(sd, tmp_path), q, u, np.zeros((32, ts.model.nv)),
+                     median_du=5e-6)

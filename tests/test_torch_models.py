@@ -139,7 +139,7 @@ def test_unported_pair_raises():
 
   w = World(device="cpu")
   body = dict(parent=-1, joint=0, mass=1.0, inertia=np.eye(3) * 0.01)
-  w.add_articulated_system([body], name="a", geoms=[dict(body=0, gtype=0, params=[0.1])])
-  w.add_articulated_system([body], name="b", geoms=[dict(body=0, gtype=0, params=[0.1])])
-  with pytest.raises(NotImplementedError, match=r"\(sphere, sphere\)"):
+  w.add_articulated_system([body], name="a", geoms=[dict(body=0, gtype=1, params=[0.1] * 3)])
+  w.add_articulated_system([body], name="b", geoms=[dict(body=0, gtype=1, params=[0.1] * 3)])
+  with pytest.raises(NotImplementedError, match=r"\(box, box\).*item 13"):
     w.compile()

@@ -1,12 +1,14 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): build
-the ANYmal main-path scene in both packages, and flatten a JAX Scene into the
-numpy arrays + plain-Python static data that raisimlib_torch.convert takes.
+the ANYmal main-path scene in both packages, flatten a JAX Scene into the
+numpy arrays + plain-Python static data that raisimlib_torch.convert takes,
+and build the fused step's generated body as host C++.
 JAX is imported only inside the JAX-side helpers, so that the card's tests
 (tests/test_torch_cuda.py) run where JAX is not installed."""
 
 import os
 
 import numpy as np
+import pytest
 import torch
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
@@ -90,3 +92,49 @@ def anymal_factors(B, seed=0):
   with torch.inference_mode():
     args, cfg = pipeline.solver_inputs(scene, state, torch.zeros_like(tgt), tgt)
   return [a.numpy().astype(np.float32) for a in args], cfg.row_kinds
+
+
+_HOST_PRE = r"""
+#include <math.h>
+#include <stddef.h>
+#define __device__
+#define __forceinline__ inline
+#define __ldg(p) (*(p))
+static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+"""
+_HOST_POST = r"""
+extern "C" void host_step(const float* q, const float* u, const float* tau, const float* pd,
+                          const float* hts, long long hts_stride, float* qo, float* uo, int B) {
+  for (int b = 0; b < B; ++b)
+    fs_body(q + (size_t)b * FS_NQ, u + (size_t)b * FS_NV, tau + (size_t)b * FS_NV,
+            pd + (size_t)b * FS_NV, hts ? hts + (size_t)b * hts_stride : NULL,
+            qo + (size_t)b * FS_NQ, uo + (size_t)b * FS_NV);
+}
+"""
+
+
+def host_step(sd, tmp_path):
+  """The generated body (`fs_body`, the kernel minus its CUDA frame) built
+  as host C++ without FMA contraction; skips without a host compiler."""
+  import ctypes
+  import shutil
+  import subprocess
+
+  from raisimlib_torch import _build
+  from raisimlib_torch.ops import gpu_step
+
+  cxx = shutil.which("g++")
+  if cxx is None:
+    pytest.skip("needs a host C++ compiler")
+  src = gpu_step.kernel_source(sd)[0]
+  src = src.replace("#include <cuda_runtime.h>", "").replace('#include "fused_step.cuh"', "")
+  cpp, lib = tmp_path / "fused_host.cpp", tmp_path / "fused_host.so"
+  cpp.write_text(_HOST_PRE + src + _HOST_POST)
+  r = subprocess.run([cxx, "-O1", "-ffp-contract=off", "-w", "-shared", "-fPIC",
+                      "-I", _build.CSRC, "-o", str(lib), str(cpp)],
+                     capture_output=True, text=True, timeout=300)
+  assert r.returncode == 0, r.stderr[:3000]
+  host = ctypes.CDLL(str(lib))
+  host.host_step.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                             + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+  return host.host_step
