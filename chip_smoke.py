@@ -6,13 +6,15 @@ Run from the repository root on a machine with an H100 and the CUDA toolkit:
 
 It builds the hand-written kernels (one nvcc per source, in parallel), then
 drives the port's two main paths on the ANYmal balance configuration, the
-terrain path on procedural heightmaps, and the sphere-box stack (BASELINE
-config 2), through their public entry points:
+terrain path on procedural heightmaps, the sphere-box stack (BASELINE
+config 2), and loose cylinders, cones and convex meshes on procedural
+heightmaps, through their public entry points:
 
   1. card and build: the card's name and power limit; the kernels' build
      (K2 from csrc/mf_solve.cu; K1 generated by ops/gpu_step.py for the flat
-     scene, as K1c for the terrain scenes, and as K1b for the stack and
-     phase 18's two other scenes), seconds and what ptxas says;
+     scene, as K1c for the terrain scenes, as K1b for the stack and phase
+     18's two other scenes, and as K1c for the debris scenes of phases
+     22-26), seconds and what ptxas says;
   K2 path (pipeline.step_batch, fused="never"):
   2. K2 against its plain twin on the card (float32): the ANYmal solver
      inputs at B = 4096, random problems with nc = 1, 4, 12, lin and
@@ -57,10 +59,25 @@ config 2), through their public entry points:
   20. examples/sphere_box_stack.py batched through K1b: 10 s (5000 steps)
       of 16384 kicked stacks, noise on the positions and the box's velocity
       (STACK_DQ, STACK_DU), every world held to the example's four gates;
-  21. K1b times at B = 16384 and B = 1024.
+  21. K1b times at B = 16384 and B = 1024;
+  debris on terrain (one loose cylinder, cone or 32-vertex convex rock per
+  world, DEBRIS, on phase 12's 64 terrains; "hm_cylpt", "hm_conept" and
+  "hm_mesh" slots, K1c):
+  22. the three sources: lines, operation tally (the twin's and the
+      kernel's), height loads per world, nvcc seconds and the ptxas line;
+  23. each source against its twin and against the K2 path (Scene.step_batch
+      with field_heights) at B = 4096, one terrain per world, from the drop
+      states and 200 steps on (landed); the axis exactly vertical on a flat
+      field, and a yawed cube mesh whose 4 bottom vertices tie, B = 1037;
+  24. rollouts of B = 16384 x H = 50 per scene;
+  25. the drop settles for 500 steps (1 s) at B = 16384: every world finite,
+      its COM above the surface, still over the terrain, and not sinking
+      (its deepest probe, by the port's pure narrow phase, under 5 mm deep
+      at one step of the last 50 at least);
+  26. each source's times at B = 16384 and B = 1024, and its bound.
 
-Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15 and
-20 and read just after: each path must launch its own kernel once per
+Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20
+and 24 and read just after: each path must launch its own kernel once per
 physics step and the other kernel never. Any failure exits non-zero. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernels' numbers, and the line before that the card's name and
@@ -613,6 +630,158 @@ def loose_states(torch, scene, B, seed, dq=1e-3, du=1e-2, kick=None, q0=None):
   return scene.init_state(q=torch.tensor(q, **f32), u=torch.tensor(u, **f32))
 
 
+# phases 22-26: one loose cylinder, cone or convex rock per world on the
+# terrain of phase 12 (RaiSim's addCylinder, addCone and addMesh on
+# addHeightMap). The cylinder and the cone are those of the JAX package's
+# tests/test_pallas_step.py (TestHeightmapCylCone); the rock has exactly
+# MAX_MESH_VERTS = 32 hull vertices, the widest mesh the kernel probes. Each
+# body goes in a world of its own: two of them would pair through the
+# support-function kernel, which K1 does not take.
+DEBRIS = {"cylinder": dict(radius=0.1, half_length=0.15, mass=1.0),
+          "cone": dict(radius=0.12, height=0.2, mass=1.0),
+          "mesh": dict(mass=2.0)}
+DEBRIS_NAMES = ("cylinder", "cone", "mesh")
+SINK_STEPS = 50                 # phase 25: a probe 5 mm deep through all of these sinks
+ROCK_SEMI_AXES = (0.15, 0.10, 0.08)
+# a cube (half extent 0.1 m, 1 kg) as a mesh: yawed on flat ground, its 4
+# bottom vertices are equally deep, the tie case of the mesh selection
+CUBE = np.array([[sx, sy, sz] for sx in (-0.1, 0.1) for sy in (-0.1, 0.1)
+                 for sz in (-0.1, 0.1)])
+
+
+def rock_vertices():
+  """The rock's 32 hull vertices: the Fibonacci directions of
+  collision.hull_support_sample scaled to ROCK_SEMI_AXES, all on an
+  ellipsoid, so that each is a vertex of the hull."""
+  k = 32
+  idx = np.arange(k)
+  phi = np.pi * (3.0 - np.sqrt(5.0)) * idx
+  z = 1.0 - 2.0 * (idx + 0.5) / k
+  r = np.sqrt(np.maximum(1.0 - z * z, 0.0))
+  return np.stack([r * np.cos(phi), r * np.sin(phi), z], 1) * np.asarray(ROCK_SEMI_AXES)
+
+
+def add_debris(world, name):
+  """Add debris body `name` ("cylinder", "cone", "mesh" or "cube") to
+  `world`, a World of the port (or of the JAX package: the calls are the
+  same)."""
+  if name == "cylinder":
+    world.add_cylinder(**DEBRIS["cylinder"])
+  elif name == "cone":
+    world.add_cone(**DEBRIS["cone"])
+  elif name == "mesh":
+    world.add_mesh(rock_vertices(), **DEBRIS["mesh"])
+  else:
+    world.add_mesh(CUBE, 1.0, name="cube")
+
+
+def debris_scene(torch, name, device=None, dtype=None):
+  """A flat 12 x 6 m heightmap of 48 x 24 samples (its heights replaced per
+  world) and one debris body, dt = 2 ms, no PD gains."""
+  from raisimlib_torch.utils import terrain as tr
+  from raisimlib_torch.world import World
+
+  world = World(dt=0.002, dtype=dtype or torch.float32, device=device)
+  world.add_heightmap(tr.flat(0.0, size=(12.0, 6.0), samples=(48, 24), device=device))
+  add_debris(world, name)
+  return world.compile(joint_limits=False)
+
+
+def debris_states(torch, scene, hts, seed):
+  """Drop states over per-world heights hts (B, 48, 24): x ~ U(-4.5, 4.5) m
+  and y ~ U(-1.5, 1.5) m (1.5 m of terrain on every side), z the surface
+  below plus U(0.25, 0.45) m, a uniformly random orientation, linear
+  velocity N(0, 0.3) m/s and angular velocity N(0, 1) rad/s per axis."""
+  from raisimlib_torch.ops import heightmap as hm
+
+  B = hts.shape[0]
+  rng = np.random.RandomState(seed)
+  q = np.zeros((B, 7))
+  q[:, 0] = rng.uniform(-4.5, 4.5, B)
+  q[:, 1] = rng.uniform(-1.5, 1.5, B)
+  lift = rng.uniform(0.25, 0.45, B)
+  quat = rng.randn(B, 4)
+  q[:, 3:] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+  u = np.concatenate([rng.randn(B, 3), 0.3 * rng.randn(B, 3)], 1)   # angular, linear
+  f32 = dict(dtype=torch.float32, device=scene.device)
+  q = torch.tensor(q, **f32)
+  z, _, _ = hm.surface_at(scene.field.replace(heights=hts), q[:, :2])
+  q[:, 2] = z + torch.tensor(lift, **f32)
+  return scene.init_state(q=q, u=torch.tensor(u, **f32))
+
+
+def upright_states(torch, scene, name, B, seed):
+  """B bodies at rest on a flat field (heights 0), turned about z only so
+  that the axis is exactly vertical, 1 mm into it: a cylinder on its cap, a
+  cone on its base, the cube on a face (its 4 bottom vertices equally
+  deep)."""
+  rng = np.random.RandomState(seed)
+  yaw = rng.uniform(-np.pi, np.pi, B)
+  q = np.zeros((B, 7))
+  q[:, :2] = rng.uniform(-3.0, 3.0, (B, 2))
+  q[:, 2] = {"cylinder": DEBRIS["cylinder"]["half_length"],
+             "cone": 0.25 * DEBRIS["cone"]["height"], "cube": 0.1}[name] - 1e-3
+  q[:, 3], q[:, 6] = np.cos(yaw / 2), np.sin(yaw / 2)
+  f32 = dict(dtype=torch.float32, device=scene.device)
+  return scene.init_state(q=torch.tensor(q, **f32), u=torch.zeros((B, 6), **f32))
+
+
+def debris_contacts(torch, scene, s, hts):
+  """The port's pure narrow phase (collision.collide) on states s: per
+  world, the deepest active penetration and whether any slot is active."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
+
+  c = coll.collide(scene.geoms, scene.pairs, dynamics.fk(scene.model, s.q),
+                   scene.field.replace(heights=hts))
+  return (c.depth * c.active).amax(1), c.active.amax(1) > 0
+
+
+def near_vertical(torch, q, tol=1e-5):
+  """How many worlds hold the body's axis within `tol` of vertical, where
+  the downhill frame switches branch at 1e-6 (float32 rounding, and FMA
+  contraction on the card, can take either branch there)."""
+  from raisimlib_torch.ops import spatial
+
+  a = spatial.quat_to_mat(q[:, 3:7])[:, :, 2]
+  return int(((a[:, 2:] * a[:, :2]).norm(dim=1).hypot(1.0 - a[:, 2] * a[:, 2]) < tol).sum())
+
+
+def settle_gates(torch, scene, step, s, hts, n):
+  """Phase 25 for one debris scene: n steps of `step(s) -> s` from s on
+  per-world heights hts, then the gates. A world fails if its state is not
+  finite, its COM is below the surface under it, it has left the terrain,
+  or it sinks: its deepest probe stays 5 mm deep or more through each of the
+  last SINK_STEPS steps. A cone rolling fast (10-14 rad/s) dips 5-10 mm at
+  its rim probes for a few steps (tools/debris_drop_cpu.py shows it on the
+  CPU); the worlds caught in such a dip at the last step are counted, not
+  failed. Returns (gates, per-world failure mask, final state, final
+  deepest-probe depth)."""
+  from raisimlib_torch.ops import heightmap as hm
+
+  for _ in range(n - SINK_STEPS):
+    s = step(s)
+  shallowest = torch.full_like(s.q[:, 0], float("inf"))
+  deepest = torch.zeros_like(shallowest)
+  for _ in range(SINK_STEPS):
+    s = step(s)
+    depth, touching = debris_contacts(torch, scene, s, hts)
+    shallowest = torch.minimum(shallowest, depth)
+    deepest = torch.maximum(deepest, depth)
+  finite = torch.isfinite(s.q).all(1) & torch.isfinite(s.u).all(1)
+  z, _, inside = hm.surface_at(scene.field.replace(heights=hts), s.q[:, :2])
+  above = s.q[:, 2] > z
+  afloat = shallowest < 5e-3
+  gates = {"not_finite": int((~finite).sum()), "com_below_surface": int((~above).sum()),
+           "sinking": int((~afloat).sum()), "off_terrain": int((~inside).sum()),
+           "over_5mm_at_the_end": int((depth >= 5e-3).sum()),
+           "max_penetration_at_the_end_m": float(depth.max()),
+           f"max_penetration_last_{SINK_STEPS}_steps_m": float(deepest.max()),
+           "in_contact": float(touching.float().mean()),
+           "max_speed_m_s": float(s.u[:, 3:].norm(dim=1).max())}
+  return gates, ~(finite & above & afloat & inside), s, depth
+
+
 def stack_golden(torch, step_for, label, device=None):
   """Replay tests/goldens/sphere_box_stack.npz (400 steps, f32) through
   `step_for(scene)(state)` on a batch of one world and hold it to the stack
@@ -683,6 +852,182 @@ def run_stack(torch, step, s, n, gc, gs):
   return t, counts, s, summary
 
 
+def run_debris(torch, gs, gc, _build, built, debris, steps, hts64, stream,
+               sizes=(16384, 4096, 1037, 1024), n_settle=500):
+  """Phases 22-26: a loose cylinder, cone or 32-vertex rock per world on the
+  64 terrains of phase 12 (K1c's hm_cylpt, hm_conept and hm_mesh slots), at
+  the batch sizes (rollouts, checks, upright checks, small timing).
+  Returns the kernels line's entry for the three sources."""
+  B, B_check, B_up, B_small = sizes
+  H = 50
+  dev = hts64.device
+  src = {}
+
+  # ---- 22. the three sources -------------------------------------------------------------
+  note("phase 22: the K1c sources of the debris scenes (hm_cylpt, hm_conept, hm_mesh)")
+  for name in DEBRIS_NAMES + ("cube",):
+    st = steps[name]
+    k = st.kernel
+    hts1 = torch.zeros((1, 48, 24), device=dev)
+    s1 = debris_states(torch, debris[name], hts1, seed=1)
+    with torch.inference_mode():
+      *_, twin_ops = gs._fused_plain(st.sd, s1.q, s1.u, torch.zeros_like(s1.u), None, hts1,
+                                     return_ops=True)
+    ptx = [ln.strip() for ln in _build.build_logs.get(k.name, "").splitlines()
+           if "registers" in ln or "spill" in ln]
+    note(f"  {name}: {k.source.count(chr(10))} lines, slots "
+         f"{sorted(set(x.kind for x in st.sd.slots))} x {len(st.sd.slots)}; {k.ops_per_world} "
+         f"operations (twin's tally {twin_ops}) and {k.loads_per_world} height loads per world; "
+         f"nvcc {built.get(k.name, 0.0):.2f} s; ptxas: {' | '.join(ptx)}")
+    if twin_ops != k.ops_per_world:
+      fail(f"{name}: the twin's tally {twin_ops} is not the kernel's {k.ops_per_world}")
+    src[name] = {"lines": k.source.count(chr(10)), "ops_per_world": k.ops_per_world,
+                 "height_loads_per_world": k.loads_per_world, "build_s": built.get(k.name),
+                 "ptxas": ptx}
+
+  # ---- 23. each source against its twin and the K2 path ----------------------------------
+  note(f"phase 23: K1c (debris) vs plain twin (float32), and vs the K2 path, B={B_check}, one "
+       f"terrain per world")
+  with torch.inference_mode():
+    hts23 = hts64.repeat(B_check // 64, 1, 1)
+    for name in DEBRIS_NAMES:
+      sc, st = debris[name], steps[name]
+      s = debris_states(torch, sc, hts23, seed=23)
+      tau = torch.zeros_like(s.u)
+      errs = [check_fused(torch, st, s, tau, None, f"{name}, drop states", hts23)[0]]
+      check_against_k2(torch, sc, st, s, tau, None, f"{name}, K1c vs K2 path, drop", hts23)
+      # the drop takes 90-150 steps to land: 200 steps in, the bodies touch
+      for _ in range(200):
+        s = st(s, tau, field_heights=hts23)
+      _, touching = debris_contacts(torch, sc, s, hts23)
+      note(f"  {name}, 200 steps in: {float(touching.float().mean()):.4f} of worlds in contact, "
+           f"{near_vertical(torch, s.q)} with the axis within 1e-5 of vertical")
+      if float(touching.float().mean()) < 0.5:
+        fail(f"{name}: fewer than half the worlds are in contact 200 steps in")
+      errs.append(check_fused(torch, st, s, tau, None, f"{name}, 200 steps in", hts23)[0])
+      check_against_k2(torch, sc, st, s, tau, None, f"{name}, K1c vs K2 path, 200 steps in",
+                       hts23)
+      src[name]["max_abs_err"] = max(errs)
+    # the axis exactly vertical on a flat field (the downhill frame's
+    # fallback, exact on every path), and the yawed cube's tied vertices
+    flat = torch.zeros((B_up, 48, 24), device=dev)
+    for name in ("cylinder", "cone", "cube"):
+      sc, st = debris[name], steps[name]
+      s = upright_states(torch, sc, name, B_up, seed=24)
+      tau = torch.zeros_like(s.u)
+      _, touching = debris_contacts(torch, sc, s, flat)
+      if not bool(touching.all()):
+        fail(f"{name}, upright: a world is not in contact")
+      err = check_fused(torch, st, s, tau, None, f"{name}, axis vertical on a flat field",
+                        flat)[0]
+      check_against_k2(torch, sc, st, s, tau, None, f"{name}, upright, K1c vs K2 path", flat)
+      if name != "cube":
+        src[name]["max_abs_err"] = max(src[name]["max_abs_err"], err)
+
+  # ---- 24. rollouts -----------------------------------------------------------------------
+  note(f"phase 24: debris rollouts through K1c, B={B}, H={H}, the 64 terrains tiled")
+  hts = hts64.repeat(B // 64, 1, 1)
+  for name in DEBRIS_NAMES:
+    st = steps[name]
+    with torch.inference_mode():
+      s = debris_states(torch, debris[name], hts, seed=23)
+      tau = torch.zeros_like(s.u)
+      st(s, tau, field_heights=hts)                   # warm-up (not counted)
+      sync(torch, dev)
+      reset_counts(gc, gs)
+      t0 = time.perf_counter()
+      for _ in range(H):
+        s = st(s, tau, field_heights=hts)
+      sync(torch, dev)
+      t = time.perf_counter() - t0
+      counts = read_counts(gc, gs)
+    if counts != (0, H):
+      fail(f"{name} rollouts launched (K2, K1) {counts} times for {H} steps")
+    if not (torch.isfinite(s.q).all() and torch.isfinite(s.u).all()):
+      fail(f"{name}: rollout state not finite")
+    src[name]["launches"] = counts[1]
+    src[name]["world_steps_per_s"] = B * H / t
+    note(f"  {name}: {t:.3f} s, world-steps/s {B * H / t:.0f}, launches K2 {counts[0]} "
+         f"K1 {counts[1]}")
+
+  # ---- 25. the drop settles ---------------------------------------------------------------
+  note(f"phase 25: the drop settles, {n_settle} steps ({n_settle * 0.002:.0f} s), B={B}")
+  for name in DEBRIS_NAMES:
+    sc, st = debris[name], steps[name]
+    with torch.inference_mode():
+      s = debris_states(torch, sc, hts, seed=23)
+      tau = torch.zeros_like(s.u)
+      t0 = time.perf_counter()
+      gates, bad, _, _ = settle_gates(torch, sc, lambda x: st(x, tau, field_heights=hts), s, hts,
+                                      n_settle)
+    gates["seconds"] = time.perf_counter() - t0
+    src[name]["settle"] = gates
+    note(f"  {name}: {gates}")
+    if bool(bad.any()):
+      fail(f"{name}: {int(bad.sum())} of {B} worlds fail the settle gates: {gates}")
+
+  # ---- 26. times --------------------------------------------------------------------------
+  note(f"phase 26: K1c (debris) times at B={B} and B={B_small}")
+  for name in DEBRIS_NAMES:
+    sc, st = debris[name], steps[name]
+    lib = _build.load(st.kernel.name)
+    times = {}
+    with torch.inference_mode():
+      for b in (B, B_small):
+        hb = hts[:b].contiguous()
+        sb = debris_states(torch, sc, hb, seed=26)
+        for _ in range(200):                          # landed
+          sb = st(sb, torch.zeros_like(sb.u), field_heights=hb)
+        taub = torch.zeros_like(sb.u)
+        qo, uo = torch.empty_like(sb.q), torch.empty_like(sb.u)
+        ptrs = [sb.q.data_ptr(), sb.u.data_ptr(), taub.data_ptr(), None]
+        times[b] = (
+            time_cuda(torch, lambda: st(sb, taub, field_heights=hb), 20),
+            time_cuda(torch, lambda: lib.fused_step_launch(
+                *ptrs, hb.data_ptr(), hb.stride(0), qo.data_ptr(), uo.data_ptr(), b, stream), 20))
+        if b == B:
+          plain_ms = time_cuda(torch, lambda: gs._fused_plain(st.sd, sb.q, sb.u, taub, None, hb),
+                               2)
+    nbytes, nops = gs.fused_step_cost(st.sd, B, st.kernel.ops_per_world,
+                                      st.kernel.loads_per_world)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = nops / H100_F32_OPS_PER_S * 1e3
+    src[name].update(ms=times[B][0], kernel_only_ms=times[B][1], plain_ms=plain_ms,
+                     bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     **{f"ms_b{B_small}": times[B_small][0],
+                        f"kernel_only_ms_b{B_small}": times[B_small][1]})
+    note(f"  {name}: B={B}: wrapper {times[B][0]:.3f} ms (kernel alone {times[B][1]:.3f} ms), "
+         f"plain twin {plain_ms:.3f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+         f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.2f} GFLOP -> "
+         f"{t_ops:.4f} ms); B={B_small}: wrapper {times[B_small][0]:.3f} ms (kernel alone "
+         f"{times[B_small][1]:.3f} ms)")
+
+  # the entry's top-level numbers are the rock's (the widest source); every
+  # source's own are under "sources"
+  top = src["mesh"]
+  return {
+      "name": "fused_step (K1c, hm_cylpt/hm_conept/hm_mesh slots: cylinder and cone probes in "
+              "a runtime downhill frame, the 4 deepest of a mesh's vertex probes; cone_solve "
+              "K3 inlined)",
+      "route": "cuda",
+      "source": "raisimlib_torch/ops/gpu_step.py",
+      "template": "raisimlib_torch/csrc/fused_step.cuh",
+      "replaces": "raisimlib_tpu/ops/pallas_step.py:995",
+      "top_level": "mesh",
+      "launches": sum(x["launches"] for x in src.values() if "launches" in x),
+      "max_abs_err": max(x["max_abs_err"] for x in src.values() if "max_abs_err" in x),
+      "ms": top["ms"],
+      "kernel_only_ms": top["kernel_only_ms"],
+      "plain_ms": top["plain_ms"],
+      "bound_ms": top["bound_ms"],
+      "bound_by": top["bound_by"],
+      "library_ms": None,
+      "ops_per_world": top["ops_per_world"],
+      "sources": {n: src[n] for n in DEBRIS_NAMES},
+  }
+
+
 def main():
   import torch
 
@@ -724,6 +1069,12 @@ def main():
                 "static_box": static_box_scene(torch)}
   k1b_steps = {k: gs.make_step_batch_fused(sc, use_pd=False) for k, sc in k1b_scenes.items()}
   for st in k1b_steps.values():
+    st.kernel
+  # K1c's cylinder, cone and mesh slots: the debris scenes of phases 22-26
+  # and the cube of phase 23's tie case
+  debris = {n: debris_scene(torch, n) for n in DEBRIS_NAMES + ("cube",)}
+  debris_steps = {n: gs.make_step_batch_fused(sc, use_pd=False) for n, sc in debris.items()}
+  for st in debris_steps.values():
     st.kernel
   t0 = time.perf_counter()
   built = _build.build()
@@ -1139,13 +1490,16 @@ def main():
       "stack_world_steps_per_s": stack_rate,
       "stack_golden_max_dq": stack_dev,
   }
+  k1c_shapes = run_debris(torch, gs, gc, _build, built, debris, debris_steps, hts64, stream)
+
   note(f"  end to end: rollouts/s through K1 {B / t_roll1:.1f}; MPPI solves/s through "
        f"K2 {32 / t_mppi:.2f}, through K1 {32 / t_mppi1:.2f}; terrain rollouts/s through K1c "
        f"{B / t_roll_c:.1f}; trot MPC solves/s through K1c {trot_solves:.2f}; stack "
-       f"world-steps/s through K1b {stack_rate:.0f}")
+       f"world-steps/s through K1b {stack_rate:.0f}; debris world-steps/s through K1c "
+       f"{ {n: round(x['world_steps_per_s']) for n, x in k1c_shapes['sources'].items()} }")
   note(f"total {time.perf_counter() - t_start:.1f} s")
   note(f"card: {card}")
-  print(json.dumps({"kernels": [k2, k1, k1c, k1b]}), flush=True)
+  print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

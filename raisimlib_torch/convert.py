@@ -7,10 +7,12 @@ Scene on `device` without this package importing the other one.
 
 arrays: model tables (X_rot, X_pos, axis, inertia, mass, actuated,
   torque_limit, joint_lo, joint_hi, q_init), geom tables (geom_params,
-  geom_offset_pos, geom_offset_rot), materials, gravity, kp, kd.
+  geom_offset_pos, geom_offset_rot, and geom_mesh_verts (ng, MAX_MESH_VERTS,
+  3) when the scene has meshes), materials, gravity, kp, kd.
 static: name, parent, joint_types, q_adr, v_adr, nq, nv, body_names, gtype,
   geom_body, geom_material, pairs, constraints (the 7 fields of
-  ConstraintTables, in order), dt, objects.
+  ConstraintTables, in order), dt, objects, and geom_mesh_vcount (vertices
+  per geom, 0 for non-mesh geoms) with geom_mesh_verts.
 A heightmap terrain, when the scene has one: arrays field_heights (nx, ny)
 and field_center (2,), static field_size (size_x, size_y).
 """
@@ -45,7 +47,9 @@ def scene_from_numpy(arrays: dict, static: dict, device=None, dtype=None) -> Sce
   geoms = coll.GeomTable(
       gtype=tuple(static["gtype"]), body=tuple(static["geom_body"]),
       material=tuple(static["geom_material"]), params=t("geom_params"),
-      offset_pos=t("geom_offset_pos"), offset_rot=t("geom_offset_rot"))
+      offset_pos=t("geom_offset_pos"), offset_rot=t("geom_offset_rot"),
+      mesh_verts=t("geom_mesh_verts") if "geom_mesh_verts" in arrays else None,
+      mesh_vcount=tuple(int(n) for n in static.get("geom_mesh_vcount", ())))
   tabs = cs.ConstraintTables(*(tuple(f) for f in static["constraints"]))
   if tabs.wires or tabs.pins or tabs.compliant:
     raise cs._unported("wires and pins")

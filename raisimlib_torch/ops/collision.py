@@ -1,11 +1,17 @@
 """Collision detection over a static pair list, batched over worlds.
 
-Counterpart of raisimlib_tpu/ops/collision.py, restricted to sphere, box and
-capsule against the ground plane and against a heightmap (ops/heightmap.py),
-and a sphere against a sphere, a box or a capsule (the runtime-frame pairs).
-Every other pair type (box-box, capsule-capsule, the support-function pairs,
-cylinders, cones and meshes) is rejected when the scene is built
-(candidate_pairs) and again by `collide`, with an error that names it.
+Counterpart of raisimlib_tpu/ops/collision.py, restricted to sphere, box,
+capsule, cylinder, cone and convex mesh against the ground plane and against
+a heightmap (ops/heightmap.py), and a sphere against a sphere, a box or a
+capsule (the runtime-frame pairs). Every other pair type (box-box,
+capsule-capsule, a sphere against a cylinder or a mesh, and the
+support-function pairs, which include any two of cylinder, cone and mesh) is
+rejected when the scene is built (candidate_pairs) and again by `collide`,
+with an error that names it.
+
+A convex mesh is a table of at most MAX_MESH_VERTS hull vertices
+(`hull_support_sample`), padded to that width; its narrow phase probes the
+vertices and keeps the 4 deepest.
 
 The plane and heightmap pairs run grouped by type; the sphere pairs run one
 pair at a time, each gated by the broad phase's AABB overlap
@@ -34,6 +40,9 @@ GEOM_CYLINDER = 5
 GEOM_MESH = 6
 GEOM_CONE = 7
 
+# convex meshes: hull vertex tables, padded to a fixed width
+MAX_MESH_VERTS = 32
+
 GEOM_NAMES = {GEOM_SPHERE: "sphere", GEOM_BOX: "box", GEOM_CAPSULE: "capsule",
               GEOM_PLANE: "plane", GEOM_HEIGHTMAP: "heightmap",
               GEOM_CYLINDER: "cylinder", GEOM_MESH: "mesh", GEOM_CONE: "cone"}
@@ -49,15 +58,21 @@ _PAIR_SLOTS = {
     (GEOM_SPHERE, GEOM_HEIGHTMAP): 1,
     (GEOM_BOX, GEOM_HEIGHTMAP): 8,
     (GEOM_CAPSULE, GEOM_HEIGHTMAP): 2,
+    (GEOM_PLANE, GEOM_CYLINDER): 6,       # 3 rim points per cap
+    (GEOM_HEIGHTMAP, GEOM_CYLINDER): 6,
+    (GEOM_PLANE, GEOM_MESH): 4,           # the 4 deepest hull vertices
+    (GEOM_HEIGHTMAP, GEOM_MESH): 4,
+    (GEOM_PLANE, GEOM_CONE): 4,           # apex + 3 base rim points
+    (GEOM_HEIGHTMAP, GEOM_CONE): 4,
 }
 
 
 def _unported(ta: int, tb: int) -> NotImplementedError:
   return NotImplementedError(
       f"geom pair ({GEOM_NAMES.get(ta, ta)}, {GEOM_NAMES.get(tb, tb)}) has no "
-      f"narrow phase in raisimlib_torch yet (ported: sphere/box/capsule vs "
-      f"plane and heightmap, sphere vs sphere/box/capsule); see ROADMAP.md "
-      f"item 13 (the rest of collision)")
+      f"narrow phase in raisimlib_torch yet (ported: sphere, box, capsule, "
+      f"cylinder, cone and mesh vs plane and heightmap, sphere vs "
+      f"sphere/box/capsule); see ROADMAP.md item 13 (the rest of collision)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +81,12 @@ class GeomSpec:
 
   body: int           # merged-model body index; -1 = static world
   gtype: int
-  params: np.ndarray  # (4,) sphere r; box hx,hy,hz; capsule r,hl; plane h
+  params: np.ndarray  # (4,) sphere r; box hx,hy,hz; capsule/cylinder r,hl; cone r,h; plane h
   offset_pos: np.ndarray
   offset_rot: np.ndarray
   material: int
   obj: int = -1       # owning object id; same-obj pairs skipped unless self_collision
+  mesh: np.ndarray = None   # (n, 3) convex-hull vertices of a mesh geom
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,21 +99,66 @@ class GeomTable:
   params: torch.Tensor      # (ng, 4)
   offset_pos: torch.Tensor  # (ng, 3)
   offset_rot: torch.Tensor  # (ng, 3, 3)
+  # hull vertex tables (body frame, geom offset applied), zero for non-mesh
+  # geoms; None for a table without meshes
+  mesh_verts: torch.Tensor = None   # (ng, MAX_MESH_VERTS, 3)
+  mesh_vcount: tuple = ()           # vertices per geom, 0 for non-mesh
+
+
+def hull_support_sample(verts, k: int = MAX_MESH_VERTS) -> np.ndarray:
+  """Reduce a vertex cloud to <= k points: the extreme vertex along each of
+  k quasi-uniform directions (a Fibonacci sphere), in vertex order. A cloud
+  of at most k vertices is returned as it is; a larger one warns. Clouds
+  that collapse to fewer than 4 support vertices are topped up with
+  farthest-point vertices, so that a mesh hull always has 4."""
+  import warnings
+
+  verts = np.asarray(verts, np.float64).reshape(-1, 3)
+  if len(verts) <= k:
+    return verts
+  warnings.warn(
+      f"hull_support_sample: reducing a {len(verts)}-vertex hull to <= {k} "
+      f"support vertices (exact for vertex contacts; conservative on "
+      f"faces/edges)", stacklevel=2)
+  idx = np.arange(k)
+  phi = np.pi * (3.0 - np.sqrt(5.0)) * idx
+  z = 1.0 - 2.0 * (idx + 0.5) / k
+  r = np.sqrt(np.maximum(1.0 - z * z, 0.0))
+  dirs = np.stack([r * np.cos(phi), r * np.sin(phi), z], axis=1)
+  picked = np.unique(np.argmax(verts @ dirs.T, axis=0))
+  while len(picked) < min(4, len(verts)):
+    d2 = np.min(np.sum((verts[:, None, :] - verts[picked][None, :, :]) ** 2, axis=2),
+                axis=1)
+    picked = np.append(picked, int(np.argmax(d2)))
+  return verts[np.sort(picked)]
 
 
 def build_geom_table(specs: Sequence[GeomSpec], dtype=torch.float32,
                      device=None) -> GeomTable:
   """The numeric geom tables on `device` (None: the card, see
-  _device.resolve_device)."""
+  _device.resolve_device). A mesh geom's hull (hull_support_sample) goes
+  into mesh_verts with its geom offset baked in, padded with its vertex 0."""
   device = resolve_device(device)
   ng = len(specs)
   params = np.zeros((ng, 4))
   opos = np.zeros((ng, 3))
   orot = np.zeros((ng, 3, 3))
+  mverts = np.zeros((ng, MAX_MESH_VERTS, 3))
+  mcount = []
   for i, g in enumerate(specs):
     params[i] = g.params
     opos[i] = g.offset_pos
     orot[i] = g.offset_rot
+    if g.mesh is None:
+      mcount.append(0)
+      continue
+    mv = hull_support_sample(g.mesh)
+    n = len(mv)
+    if n < 4:
+      raise ValueError(f"a mesh hull needs >= 4 vertices, geom {i} has {n}")
+    mverts[i, :n] = np.asarray(g.offset_pos)[None] + mv @ np.asarray(g.offset_rot).T
+    mverts[i, n:] = mverts[i, 0]             # padding repeats a real vertex (masked)
+    mcount.append(n)
 
   def t(x):
     return torch.as_tensor(x, dtype=dtype, device=device)
@@ -105,7 +166,8 @@ def build_geom_table(specs: Sequence[GeomSpec], dtype=torch.float32,
   return GeomTable(gtype=tuple(int(g.gtype) for g in specs),
                    body=tuple(int(g.body) for g in specs),
                    material=tuple(int(g.material) for g in specs),
-                   params=t(params), offset_pos=t(opos), offset_rot=t(orot))
+                   params=t(params), offset_pos=t(opos), offset_rot=t(orot),
+                   mesh_verts=t(mverts), mesh_vcount=tuple(mcount))
 
 
 def candidate_pairs(specs: Sequence[GeomSpec], model, self_collision: bool = False) -> tuple:
@@ -269,6 +331,106 @@ def _sphere_box(geoms, ia, ib, kin):
   return [(pos, n, depth, depth > 0)]
 
 
+# cylinders, cones and meshes: probe points in a runtime frame. The plane
+# kernels here and the heightmap's (ops/heightmap.py) share them.
+
+RIM_PHI = (0.0, 2.0943951, -2.0943951)       # downhill, then +-120 degrees
+
+
+def downhill_frame(R):
+  """(a, u, w), each (..., 3), of geom rotations R (..., 3, 3): the axis a
+  (R's z column), the rim direction u deepest below a plane normal to +z
+  (z projected off the axis, negated, normalised), and w = a x u. When the
+  axis is vertical (projection below 1e-6) u is R's x column, which gives a
+  stable 3-point face."""
+  a = R[..., :, 2]
+  ax, ay, az = a.unbind(-1)
+  radial = torch.stack([-(az * ax), -(az * ay), 1.0 - az * az], -1)   # z - (z . a) a
+  rn = torch.sqrt(torch.sum(radial * radial, -1, keepdim=True))
+  degenerate = rn < 1e-6
+  u = torch.where(degenerate, R[..., :, 0], -radial / torch.where(degenerate, 1.0, rn))
+  u = u / torch.sqrt(torch.sum(u * u, -1, keepdim=True) + 1e-18)
+  return a, u, torch.linalg.cross(a, u, dim=-1)
+
+
+def _rim(c, r, u, w, phi):
+  return c + r * (float(np.cos(phi)) * u + float(np.sin(phi)) * w)
+
+
+def cylinder_points(R, p, r, hl):
+  """The 6 rim probes (..., 6, 3) of cylinders at (R, p) with radius r and
+  half-length hl (shape p[..., 0]): per cap (bottom, top) the downhill rim
+  point and the points +-120 degrees round from it."""
+  a, u, w = downhill_frame(R)
+  r, hl = r.unsqueeze(-1), hl.unsqueeze(-1)
+  return torch.stack([_rim(p + a * (s * hl), r, u, w, phi)
+                      for s in (-1.0, 1.0) for phi in RIM_PHI], -2)
+
+
+def cone_points(R, p, r, h):
+  """The 4 probes (..., 4, 3) of cones at (R, p) (the COM: apex at +0.75 h
+  on the axis, base ring of radius r at -0.25 h): the apex, then the
+  downhill base-rim point and the points +-120 degrees round from it."""
+  a, u, w = downhill_frame(R)
+  r, h = r.unsqueeze(-1), h.unsqueeze(-1)
+  base_c = p - a * (0.25 * h)
+  return torch.stack([p + a * (0.75 * h)] + [_rim(base_c, r, u, w, phi) for phi in RIM_PHI],
+                     -2)
+
+
+def mesh_world_verts(geoms: GeomTable, idxs, kin):
+  """(B, m, MAX_MESH_VERTS, 3) hull vertices of the body-attached mesh geoms
+  `idxs` in the world frame (the geom offset is in mesh_verts already), and
+  their mask (m, MAX_MESH_VERTS): False on the padding rows."""
+  dev = kin.p.device
+  gi = torch.as_tensor(idxs, device=dev)
+  bi = torch.as_tensor([geoms.body[g] for g in idxs], device=dev)
+  V = geoms.mesh_verts[gi]                                        # (m, 32, 3)
+  Rb, pb = kin.R[:, bi], kin.p[:, bi]
+  verts = pb[:, :, None, :] + V @ Rb.transpose(-1, -2)
+  count = torch.as_tensor([geoms.mesh_vcount[g] for g in idxs], device=dev)
+  return verts, torch.arange(MAX_MESH_VERTS, device=dev) < count[:, None]
+
+
+def deepest4(depths):
+  """Indices (..., 4) of the 4 largest depths along the last axis, equal
+  depths in index order (the order of the JAX package's lax.top_k)."""
+  return torch.sort(depths, dim=-1, descending=True, stable=True).indices[..., :4]
+
+
+def _plane_probes(pts, h):
+  """Point probes (B, k, 3) against the plane z = h: one slot each."""
+  n = _up(pts)
+  depth = h - pts[..., 2]
+  return list(zip(pts.unbind(1), n.unbind(1), depth.unbind(1), (depth > 0).unbind(1)))
+
+
+def _cylinder_plane(geoms, ia, ib, kin):
+  """Cylinder (A) vs plane (B): the 6 rim probes of cylinder_points."""
+  R, p = _geom_pose(geoms, ia, kin)
+  return _plane_probes(cylinder_points(R, p, geoms.params[ia, 0], geoms.params[ia, 1]),
+                       geoms.params[ib, 0])
+
+
+def _cone_plane(geoms, ia, ib, kin):
+  """Cone (A) vs plane (B): the apex and 3 base-rim probes of cone_points."""
+  R, p = _geom_pose(geoms, ia, kin)
+  return _plane_probes(cone_points(R, p, geoms.params[ia, 0], geoms.params[ia, 1]),
+                       geoms.params[ib, 0])
+
+
+def _mesh_plane(geoms, ia, ib, kin):
+  """Convex mesh (A) vs plane (B): the 4 deepest hull vertices."""
+  V, mask = mesh_world_verts(geoms, [ia], kin)
+  V, mask = V[:, 0], mask[0]
+  depths = torch.where(mask, geoms.params[ib, 0] - V[..., 2], -torch.inf)
+  top = deepest4(depths)
+  pts = torch.gather(V, 1, top[..., None].expand(-1, -1, 3))
+  d = torch.gather(depths, 1, top)
+  n = _up(pts)
+  return list(zip(pts.unbind(1), n.unbind(1), d.unbind(1), (d > 0).unbind(1)))
+
+
 # broad phase: a masked AABB overlap test per bounded pair
 
 _AABB_BIG = 3e38
@@ -381,8 +543,9 @@ _BATCHED = {
     (GEOM_CAPSULE, GEOM_PLANE): (_b_capsule_plane, 2),
     (GEOM_BOX, GEOM_PLANE): (_b_box_plane, 8),
 }
-# the single-pair forms: for the plane pairs slot for slot the same as the
-# grouped ones; the sphere pairs run only in this form
+# the single-pair forms: for the sphere, capsule and box plane pairs slot for
+# slot the same as the grouped ones; the sphere pairs and the cylinder, cone
+# and mesh plane pairs run only in this form
 SINGLE = {
     (GEOM_SPHERE, GEOM_PLANE): _sphere_plane,
     (GEOM_BOX, GEOM_PLANE): _box_plane,
@@ -390,6 +553,9 @@ SINGLE = {
     (GEOM_SPHERE, GEOM_SPHERE): _sphere_sphere,
     (GEOM_SPHERE, GEOM_BOX): _sphere_box,
     (GEOM_SPHERE, GEOM_CAPSULE): _sphere_capsule,
+    (GEOM_CYLINDER, GEOM_PLANE): _cylinder_plane,
+    (GEOM_CONE, GEOM_PLANE): _cone_plane,
+    (GEOM_MESH, GEOM_PLANE): _mesh_plane,
 }
 
 

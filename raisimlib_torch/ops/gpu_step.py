@@ -1,13 +1,16 @@
 """Fused full physics step (K1): one CUDA kernel launch per step, and its twin.
 
-Counterpart of raisimlib_tpu/ops/pallas_step.py for three of its scene
+Counterpart of raisimlib_tpu/ops/pallas_step.py for all of its scene
 classes: FREE, REVOLUTE, PRISMATIC and SPHERICAL joints and joint-limit rows,
 with sphere centres, capsule endpoints and box corners as contact points
 against the ground plane (K1a, `plane_pt` slots), a sphere against a sphere,
 a box or a capsule, each on a body or static (K1b, `ss`, `sb` and `sc` slots:
 collision's pair kernels, the sphere-box interior branch included), and
-points against a heightmap (K1c, `hm_pt` slots: heightmap._point_contact,
-riser march included). Per world the step runs
+probes against a heightmap (K1c: `hm_pt` slots, heightmap._point_contact
+with the riser march; `hm_cylpt` and `hm_conept` slots, the rim and apex
+points of a cylinder or a cone in its runtime downhill frame; `hm_mesh`
+slots, the 4 deepest hull-vertex probes of a convex mesh, selected in the
+kernel). Per world the step runs
 
     A.   feedforward + implicit PD torque, clamped
     B/C. forward kinematics and the RNEA bias h
@@ -304,11 +307,18 @@ class _Slot(NamedTuple):
     "sb":       against a box of half extents he at (b_pos, b_rot) on body_b,
                 the interior branch included (collision._sphere_box);
     "sc":       against a capsule at (b_pos, b_rot) on body_b, he = (rb, hl,
-                0) (collision._sphere_capsule).
+                0) (collision._sphere_capsule);
+    "hm_cylpt": a rim point of a cylinder at (b_pos, b_rot) on body_a, he =
+                (r, hl, 0), against the heightmap: local = (cap sign, phi,
+                0), phi the angle from the runtime downhill direction;
+    "hm_conept": a point of a cone at (b_pos, b_rot) on body_a, he = (r, h,
+                0): local = (0, 0, 0) the apex, (1, phi, 0) a base-rim point;
+    "hm_mesh":  the k-th deepest hull-vertex probe of mesh hm_meshes[i] on
+                body_a against the heightmap: local = (i, k, 0).
 
   body_b = -1 for the plane, the heightmap and a static world geom, whose
-  b_pos and b_rot are then world coordinates. The sphere pairs take their
-  frame from the runtime normal."""
+  b_pos and b_rot are then world coordinates. The sphere pairs and the
+  heightmap slots take their frame from the runtime normal."""
 
   kind: str
   body_a: int
@@ -384,7 +394,8 @@ class _StaticData(NamedTuple):
   slots: tuple          # of _Slot
   limits: tuple         # of _Limit
   n_wrows: int          # solver rows needing W (3 * ncone + nlim)
-  hm: _HmStatic = None  # the heightfield, for scenes with "hm_pt" slots
+  hm: _HmStatic = None  # the heightfield, for scenes with "hm_*" slots
+  hm_meshes: tuple = ()  # (body, vertices (body frame), vertex count) per mesh
 
 
 def _host(x) -> np.ndarray:
@@ -394,8 +405,6 @@ def _host(x) -> np.ndarray:
 _UNSUPPORTED_PAIR = ("box-box, capsule-capsule and the support-function pairs "
                      "are not ported, and are not in the fused kernel's class: "
                      "ROADMAP.md item 13")
-_UNSUPPORTED_HM = ("cylinder, cone and mesh against the heightmap are not "
-                   "ported to the fused kernel: ROADMAP.md item 13")
 
 
 def _analyze_field(scene, field) -> _HmStatic:
@@ -437,7 +446,8 @@ def _analyze_field(scene, field) -> _HmStatic:
 def _analyze(scene, config, use_pd: bool) -> _StaticData:
   """Concretize the scene to static kernel data; raise FusedStepUnsupported
   for anything outside the kernel's scene classes (K1a "plane_pt", K1b "ss",
-  "sb", "sc", K1c "hm_pt")."""
+  "sb", "sc", K1c "hm_pt", "hm_cylpt", "hm_conept", "hm_mesh"), in the
+  JAX package's slot order and with its slot fields."""
   model = scene.model
   for jt in model.joint_types:
     if JointType(jt) not in (JointType.FREE, JointType.REVOLUTE,
@@ -456,6 +466,7 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
   orot = _host(geoms.offset_rot)
 
   slots = []
+  hm_meshes = []
   for ia, ib in scene.pairs:
     ta, tb = geoms.gtype[ia], geoms.gtype[ib]
     names = (coll.GEOM_NAMES.get(ta, ta), coll.GEOM_NAMES.get(tb, tb))
@@ -505,8 +516,26 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
         for sy in (-1.0, 1.0):
           for sz in (-1.0, 1.0):
             point(oa + ra_ @ (he * np.array([sx, sy, sz])), 0.0)
-    elif kind == "hm_pt" and ta in (coll.GEOM_CYLINDER, coll.GEOM_CONE, coll.GEOM_MESH):
-      raise FusedStepUnsupported(f"{names[0]} vs heightmap: {_UNSUPPORTED_HM}")
+    elif kind == "hm_pt" and ta in (coll.GEOM_CYLINDER, coll.GEOM_CONE):
+      # probes at runtime offsets (the downhill frame), in the order of
+      # heightmap's cylinder and cone points
+      he = (float(pa[0]), float(pa[1]), 0.0)
+      if ta == coll.GEOM_CYLINDER:
+        kind, locals_ = "hm_cylpt", [(s_, phi, 0.0) for s_ in (-1.0, 1.0)
+                                     for phi in coll.RIM_PHI]
+      else:
+        kind, locals_ = "hm_conept", [_ZV] + [(1.0, phi, 0.0) for phi in coll.RIM_PHI]
+      for loc in locals_:
+        slots.append(_Slot(kind, ba, -1, loc, 0.0, 0.0, 0.0, he, _np_v(oa), _np_m(ra_),
+                           mu, e, th))
+    elif kind == "hm_pt" and ta == coll.GEOM_MESH:
+      # the 4 deepest of the hull-vertex probes, selected in the kernel
+      vcount = int(geoms.mesh_vcount[ia])
+      verts = _host(geoms.mesh_verts[ia])[:vcount]
+      hm_meshes.append((ba, tuple(_np_v(v) for v in verts), vcount))
+      for k in range(4):
+        slots.append(_Slot("hm_mesh", ba, -1, (float(len(hm_meshes) - 1), float(k), 0.0),
+                           0.0, 0.0, 0.0, _ZV, _ZV, _I3, mu, e, th))
     else:
       raise FusedStepUnsupported(f"geom type {names[0]} vs {names[1]}")
 
@@ -551,14 +580,14 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
       max_corr=float(config.max_correction_vel),
       sweeps=int(config.solver.sweeps), n_grid=int(config.solver.n_grid),
       slots=tuple(slots), limits=limits,
-      n_wrows=3 * len(slots) + len(limits), hm=hm)
+      n_wrows=3 * len(slots) + len(limits), hm=hm, hm_meshes=tuple(hm_meshes))
 
 
 # ---------------------------------------------------------------------------
 # Runtime values and the two back ends
 # ---------------------------------------------------------------------------
 
-_BOOL_OPS = (">", "<", ">=", "<=", "||", "&&")
+_BOOL_OPS = (">", "<", ">=", "<=", "==", "||", "&&")
 
 
 class _Val:
@@ -673,6 +702,8 @@ class _TorchOps:
       r = xa >= xb
     elif op == "<=":
       r = xa <= xb
+    elif op == "==":
+      r = xa == xb
     elif op == "&&":
       r = xa & xb
     else:
@@ -1262,6 +1293,62 @@ def _runtime_frame(K, n):
   return t1, _cross(n, t1)
 
 
+def _emit_downhill_frame(K, Rg):
+  """collision.downhill_frame of one geom rotation Rg: (a, u, w), the axis,
+  the downhill rim direction (Rg's x column when the axis is vertical) and
+  a x u."""
+  a = tuple(Rg[k][2] for k in range(3))
+  radial = (_neg(_mul(a[2], a[0])), _neg(_mul(a[2], a[1])), _sub(1.0, _mul(a[2], a[2])))
+  rn = K.sqrt(_add(*[_mul(c, c) for c in radial]))
+  degen = rn < 1e-6
+  denom = K.where(degen, 1.0, rn)
+  u0 = tuple(K.where(degen, Rg[k][0], _neg(radial[k]) / denom) for k in range(3))
+  un = K.sqrt(_add(*[_mul(c, c) for c in u0]) + 1e-18)
+  u = tuple(c / un for c in u0)
+  return a, u, _cross(a, u)
+
+
+def _emit_shape_point(slot: _Slot, frame):
+  """The world point of an "hm_cylpt" or "hm_conept" slot: collision's
+  cylinder_points / cone_points in the geom's frame (pg, a, u, w)."""
+  pg, a, u, w = frame
+  r, hl = slot.he[0], slot.he[1]
+  if slot.kind == "hm_cylpt":
+    center = _vadd(pg, _vscale(slot.local[0] * hl, a))
+  elif slot.local[0] == 0.0:                       # the cone's apex
+    return _vadd(pg, _vscale(0.75 * hl, a))
+  else:                                            # a point of the cone's base rim
+    center = _vadd(pg, _vscale(-0.25 * hl, a))
+  phi = slot.local[1]
+  rim = _vadd(_vscale(float(np.cos(phi)), u), _vscale(float(np.sin(phi)), w))
+  return _vadd(center, _vscale(r, rim))
+
+
+def _emit_deepest4(K, probes):
+  """collision.deepest4 over probes (pos, normal, depth, valid): four passes
+  of a max sweep, each taking the first probe at the maximum (so equal
+  depths go in probe order) and setting its depth to -3e38 for the later
+  passes. Returns the 4 selected probes, deepest first."""
+  dcur = [p[2] for p in probes]
+  sel = []
+  for _ in range(4):
+    dmax = dcur[0]
+    for d in dcur[1:]:
+      dmax = K.maximum(dmax, d)
+    taken = 0.0
+    pk, nk, dk, ak = _ZV, _ZV, 0.0, 0.0
+    for i, (pos, nrm, _, valid) in enumerate(probes):
+      c = _mul(K.to_float(K.bin("==", dcur[i], dmax)), _sub(1.0, taken))
+      taken = _add2(taken, c)
+      pk = _vadd(pk, _vscale(c, pos))
+      nk = _vadd(nk, _vscale(c, nrm))
+      dk = _add2(dk, _mul(c, dcur[i]))
+      ak = _add2(ak, _mul(c, valid))
+      dcur[i] = K.where(c > 0.5, -3e38, dcur[i])
+    sel.append((pk, nk, dk, ak))
+  return sel
+
+
 def _emit_sphere_pair(K, slot: _Slot, ca, Rbw, pbw):
   """The sphere of centre ca and radius slot.radius against geom B of an
   "ss", "sb" or "sc" slot, whose body has the pose (Rbw, pbw). Returns (pos,
@@ -1350,22 +1437,42 @@ def _emit_step(sd: _StaticData, K, q, u, tau_in, pd_in):
       return _I3, (0.0, 0.0, 0.0)
     return _mT(E0[b]), r0[b]
 
+  frames = {}        # (body, b_pos, b_rot, he) -> a cylinder's or cone's frame
+  mesh_sel = {}      # mesh index -> its 4 selected probes
   for s_i, slot in enumerate(sd.slots):
     ba = slot.body_a
     Ra, pa_ = body_pose(ba)
-    ca = _vadd(pa_, _mv(Ra, slot.local))         # feature point / centre, world
-    if slot.kind == "plane_pt":
-      depth = _sub(slot.plane_h + slot.radius, ca[2])
-      pos = (ca[0], ca[1], _sub(ca[2], slot.radius))
-      t1, t2, nrm = (0.0, 1.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.0, 1.0)
-      act[s_i] = K.to_float(depth > 0.0)
-    elif slot.kind == "hm_pt":
-      pos, nrm, depth, act[s_i] = _emit_hm_probe(sd.hm, K, ca, slot.radius)
+    if slot.kind in ("hm_cylpt", "hm_conept"):
+      key = (ba, slot.b_pos, slot.b_rot, slot.he)
+      if key not in frames:                      # one frame for the geom's slots
+        frames[key] = (_vadd(pa_, _mv(Ra, slot.b_pos)),
+                       *_emit_downhill_frame(K, _mm(Ra, slot.b_rot)))
+      pos, nrm, depth, act[s_i] = _emit_hm_probe(
+          sd.hm, K, _emit_shape_point(slot, frames[key]), 0.0)
       t1, t2 = _runtime_frame(K, nrm)
-    else:                                        # "ss", "sb", "sc"
-      pos, nrm, depth = _emit_sphere_pair(K, slot, ca, *body_pose(slot.body_b))
+    elif slot.kind == "hm_mesh":
+      mi, k_out = int(slot.local[0]), int(slot.local[1])
+      if mi not in mesh_sel:                     # one selection for the mesh's 4 slots
+        body, verts, _ = sd.hm_meshes[mi]
+        Rm, pm = body_pose(body)
+        mesh_sel[mi] = _emit_deepest4(K, [_emit_hm_probe(sd.hm, K, _vadd(pm, _mv(Rm, v)), 0.0)
+                                          for v in verts])
+      pos, nrm, depth, act[s_i] = mesh_sel[mi][k_out]
       t1, t2 = _runtime_frame(K, nrm)
-      act[s_i] = K.to_float(depth > 0.0)
+    else:
+      ca = _vadd(pa_, _mv(Ra, slot.local))       # feature point / centre, world
+      if slot.kind == "plane_pt":
+        depth = _sub(slot.plane_h + slot.radius, ca[2])
+        pos = (ca[0], ca[1], _sub(ca[2], slot.radius))
+        t1, t2, nrm = (0.0, 1.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 0.0, 1.0)
+        act[s_i] = K.to_float(depth > 0.0)
+      elif slot.kind == "hm_pt":
+        pos, nrm, depth, act[s_i] = _emit_hm_probe(sd.hm, K, ca, slot.radius)
+        t1, t2 = _runtime_frame(K, nrm)
+      else:                                      # "ss", "sb", "sc"
+        pos, nrm, depth = _emit_sphere_pair(K, slot, ca, *body_pose(slot.body_b))
+        t1, t2 = _runtime_frame(K, nrm)
+        act[s_i] = K.to_float(depth > 0.0)
     # the relative-velocity Jacobian v(A) - v(B): +1 on A's ancestor dofs,
     # -1 on B's, and a dof both move drops out
     cmap = {j: 1.0 for j in sd.anc_dofs[ba]} if ba >= 0 else {}
@@ -1736,7 +1843,7 @@ class FusedStep:
 def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
   """Fused replacement for pipeline.step_batch on eligible scenes (K1a on a
   plane, K1b for a sphere against a sphere, a box or a capsule, K1c on a
-  heightmap).
+  heightmap, cylinders, cones and convex meshes included).
 
   Returns step(state, tau, pd_target, field_heights=None) -> State
   (pd_target ignored when use_pd=False). On a heightmap scene

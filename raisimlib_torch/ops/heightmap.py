@@ -7,11 +7,13 @@ and normal there come from that triangle's plane, and the penetration is the
 signed point-plane distance, masked to the field's extent.
 
 Slot counts per geom follow the primitive-vs-plane ones: a sphere gives 1
-contact slot, a capsule 2 (its end spheres), a box 8 (its corners). Spheres
-and capsule ends (r > 0) also march 4 samples along each of the 4 horizontal
-directions out to r, so that a stairs riser is met before the centre crosses
-it (`_point_contact`). Cylinders, cones and meshes against the field are not
-ported yet: ROADMAP.md item 13.
+contact slot, a capsule 2 (its end spheres), a box 8 (its corners), a
+cylinder 6 (3 rim points per cap) and a cone 4 (the apex and 3 base-rim
+points), both in the runtime downhill frame of collision.downhill_frame, and
+a convex mesh 4 (of its hull vertices, the 4 deepest below the surface).
+Spheres and capsule ends (r > 0) also march 4 samples along each of the 4
+horizontal directions out to r, so that a stairs riser is met before the
+centre crosses it (`_point_contact`); every other probe is a point.
 
 `heights` is (nx, ny) for one field that every world shares, or (B, nx, ny)
 for one field per world (batched terrain scenarios): the JAX package's
@@ -167,8 +169,37 @@ def _box_points(geoms, idxs, kin):
   return corners, 0.0                                                # (B,m,8,3)
 
 
+def _cylinder_points(geoms, idxs, kin):
+  gi = torch.as_tensor(idxs, device=kin.p.device)
+  R, p = coll._group_poses(geoms, idxs, kin)
+  return coll.cylinder_points(R, p, geoms.params[gi, 0], geoms.params[gi, 1]), 0.0
+
+
+def _cone_points(geoms, idxs, kin):
+  gi = torch.as_tensor(idxs, device=kin.p.device)
+  R, p = coll._group_poses(geoms, idxs, kin)
+  return coll.cone_points(R, p, geoms.params[gi, 0], geoms.params[gi, 1]), 0.0
+
+
 _POINTS = {coll.GEOM_SPHERE: _sphere_points, coll.GEOM_CAPSULE: _capsule_points,
-           coll.GEOM_BOX: _box_points}
+           coll.GEOM_BOX: _box_points, coll.GEOM_CYLINDER: _cylinder_points,
+           coll.GEOM_CONE: _cone_points}
+
+
+def _mesh_contacts(geoms, idxs, kin, field):
+  """Every hull vertex probed as a point, the padding masked to -inf depth,
+  and the 4 deepest kept per mesh (equal depths in vertex order): (pos,
+  normal, depth, valid), each (B, m, 4, ...)."""
+  V, mask = coll.mesh_world_verts(geoms, idxs, kin)
+  pos, n, depth, valid = _point_contact(field, V, 0.0)
+  depth = torch.where(mask, depth, -torch.inf)
+  top = coll.deepest4(depth)
+
+  def pick(x):
+    return torch.gather(x, 2, top.view(top.shape + (1,) * (x.ndim - 3)).expand(
+        top.shape + x.shape[3:]))
+
+  return pick(pos), pick(n), pick(depth), pick(valid & mask)
 
 
 def collide_group(geoms, idxs, kin, field: HeightField):
@@ -176,19 +207,19 @@ def collide_group(geoms, idxs, kin, field: HeightField):
   field: (pos (B, n, 3), normal (B, n, 3), depth (B, n), valid (B, n)) with
   the geoms' slots in order, n = len(idxs) x the type's slot count."""
   t = geoms.gtype[idxs[0]]
-  if t not in _POINTS:
-    raise NotImplementedError(f"{coll.GEOM_NAMES.get(t, t)} vs heightmap has no narrow phase "
-                              f"in raisimlib_torch yet (ported: sphere, capsule, box): "
-                              f"ROADMAP.md item 13")
-  pts, r = _POINTS[t](geoms, idxs, kin)
-  pos, n, depth, valid = _point_contact(field, pts, r)
-  B = pts.shape[0]
+  if t == coll.GEOM_MESH:
+    pos, n, depth, valid = _mesh_contacts(geoms, idxs, kin, field)
+  else:
+    pts, r = _POINTS[t](geoms, idxs, kin)
+    pos, n, depth, valid = _point_contact(field, pts, r)
+  B = pos.shape[0]
   return (pos.reshape(B, -1, 3), n.reshape(B, -1, 3), depth.reshape(B, -1),
           valid.reshape(B, -1))
 
 
 def collide_heightmap(geoms, gi: int, kin, field: HeightField):
   """Narrow phase of geom `gi` against the field: one (pos (B, 3), normal,
-  depth (B,), valid) per slot (sphere 1, capsule 2, box 8)."""
+  depth (B,), valid) per slot (sphere 1, capsule 2, box 8, cylinder 6, cone
+  4, mesh 4)."""
   pos, n, depth, valid = collide_group(geoms, [gi], kin, field)
   return list(zip(pos.unbind(1), n.unbind(1), depth.unbind(1), valid.unbind(1)))

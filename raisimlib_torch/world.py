@@ -1,15 +1,18 @@
 """World -> Scene: the public scene-building API of the port.
 
 Counterpart of raisimlib_tpu/world.py for articulated systems, loose
-spheres, boxes (also static ones) and capsules, the ground plane and a
-heightmap. `World.add_*` calls accumulate object specs on the host;
+spheres, boxes (also static ones), capsules, cylinders, cones and convex
+meshes, the ground plane and a heightmap. `World.add_*` calls accumulate object specs on the host;
 `World.compile()` merges them into one forest `RobotModel` (a loose body is a
 FREE-joint root) plus static geometry tables on the world's device and
 returns a `Scene`, whose `step` / `step_batch` advance states. A world holds
 at most one heightmap (`add_heightmap`); the compiled Scene carries it as
 `Scene.field`, and `Scene.replace(field=scene.field.replace(heights=h))`
-swaps in other heights. Not ported yet (ROADMAP.md): cylinders, cones,
-meshes, compounds, wires and pins.
+swaps in other heights. A cylinder, cone or mesh collides with the ground
+and the heightmap only: two of them in one world (or one with a sphere, a box
+or a capsule) pair through the support-function kernel, which is not ported,
+and compile() raises. Not ported yet (ROADMAP.md): those pairs, compounds,
+wires and pins.
 """
 
 from __future__ import annotations
@@ -116,9 +119,10 @@ class World:
     return h
 
   def _add_free_body(self, name: str, mass: float, inertia, pos, gtype: int, params,
-                     material: int, rot=None) -> ObjectHandle:
+                     material: int, rot=None, com=(0.0, 0.0, 0.0),
+                     mesh=None) -> ObjectHandle:
     """One FREE-joint body at `pos` (identity orientation) with one geom."""
-    spec = dict(parent=-1, joint=JointType.FREE, mass=mass, com=[0, 0, 0],
+    spec = dict(parent=-1, joint=JointType.FREE, mass=mass, com=list(com),
                 inertia=inertia, actuated=False, name=name,
                 q_init=list(pos) + [1.0, 0.0, 0.0, 0.0])
     h = self.add_articulated_system([spec], name)
@@ -126,7 +130,7 @@ class World:
     padded[:len(params)] = params
     self._geoms.append(coll.GeomSpec(
         h.body_start, gtype, padded, np.zeros(3),
-        np.eye(3) if rot is None else np.asarray(rot, np.float64), material))
+        np.eye(3) if rot is None else np.asarray(rot, np.float64), material, mesh=mesh))
     return h
 
   def add_sphere(self, radius: float, mass: float, name="sphere", material=0,
@@ -161,6 +165,42 @@ class World:
     ixx = mass * (3.0 * r2 + length * length) / 12.0
     return self._add_free_body(name, mass, np.diag([ixx, ixx, 0.5 * mass * r2]), pos,
                                coll.GEOM_CAPSULE, [radius, half_length], material)
+
+  def add_cylinder(self, radius: float, half_length: float, mass: float, name="cylinder",
+                   material=0, pos=(0.0, 0.0, 1.0)) -> ObjectHandle:
+    """A loose flat-capped cylinder along its body z axis (RaiSim
+    `World::addCylinder`)."""
+    r2, length = radius * radius, 2.0 * half_length
+    ixx = mass * (3.0 * r2 + length * length) / 12.0
+    return self._add_free_body(name, mass, np.diag([ixx, ixx, 0.5 * mass * r2]), pos,
+                               coll.GEOM_CYLINDER, [radius, half_length], material)
+
+  def add_cone(self, radius: float, height: float, mass: float, name="cone",
+               material=0, pos=(0.0, 0.0, 1.0)) -> ObjectHandle:
+    """A loose solid cone along its body +z axis (RaiSim `World::addCone`),
+    its origin at the COM: the base ring of `radius` at z = -height/4, the
+    apex at z = +3 height/4."""
+    r2 = radius * radius
+    ixx = mass * (3.0 / 20.0 * r2 + 3.0 / 80.0 * height * height)
+    return self._add_free_body(name, mass, np.diag([ixx, ixx, 0.3 * mass * r2]), pos,
+                               coll.GEOM_CONE, [radius, height], material)
+
+  def add_mesh(self, vertices, mass: float, name="mesh", material=0, pos=(0.0, 0.0, 1.0),
+               inertia=None, com=(0.0, 0.0, 0.0)) -> ObjectHandle:
+    """A loose convex mesh from its hull vertices (n, 3) in the body frame
+    (RaiSim `World::addMesh`); the narrow phase takes at most
+    collision.MAX_MESH_VERTS of them (collision.hull_support_sample).
+    `inertia` (3, 3) about the COM `com` defaults to the inertia of the
+    vertices' bounding box (an approximation: pass the true tensor)."""
+    V = np.asarray(vertices, dtype=np.float64).reshape(-1, 3)
+    if len(V) < 4:
+      raise ValueError(f"a mesh needs >= 4 vertices, got {len(V)}")
+    if inertia is None:
+      ext = V.max(axis=0) - V.min(axis=0)
+      inertia = mass / 12.0 * np.diag([ext[1] ** 2 + ext[2] ** 2, ext[0] ** 2 + ext[2] ** 2,
+                                       ext[0] ** 2 + ext[1] ** 2])
+    return self._add_free_body(name, mass, np.asarray(inertia, np.float64), pos,
+                               coll.GEOM_MESH, [], material, com=com, mesh=V)
 
   def add_ground(self, height: float = 0.0, material: int = 0) -> None:
     self._geoms.append(coll.GeomSpec(-1, coll.GEOM_PLANE,

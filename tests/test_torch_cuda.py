@@ -1,5 +1,6 @@
 """Tests that need the card: the hand-written CUDA kernels (K2, and the fused
-step K1 on the plane, on a heightmap and with the sphere pairs) against
+step K1 on the plane, on a heightmap, with the sphere pairs and with loose
+cylinders, cones and meshes on a heightmap) against
 their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
 is not needed,
 so on the GPU machine they run without the JAX test configuration:
@@ -160,3 +161,37 @@ def test_k1b_fused_step_kernel_matches_plain_twin():
     assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
     assert dq.max() <= 5e-4 and du.max() <= 5e-3
     assert np.isfinite(dq).all()
+
+
+@pytest.mark.cuda
+def test_debris_fused_step_kernel_matches_plain_twin():
+  """K1c's cylinder, cone and mesh slots (chip_smoke.py's debris scenes: one
+  body per world on 64 fractal terrains) against `_fused_plain` on the card,
+  B = 1037, from the drop states and 200 steps on (landed). The tiers of
+  the plane case."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from torch_port_util import load_chip_smoke
+
+  from raisimlib_torch.ops import gpu_step
+
+  cs = load_chip_smoke()
+  B = 1037
+  hts = cs.make_terrains(torch, 64).repeat(17, 1, 1)[:B].contiguous()
+  for name in cs.DEBRIS_NAMES:
+    step = gpu_step.make_step_batch_fused(cs.debris_scene(torch, name), use_pd=False)
+    s = cs.debris_states(torch, step.scene, hts, seed=25)
+    tau = torch.zeros_like(s.u)
+    with torch.inference_mode():
+      for k in range(201):
+        if k in (0, 200):
+          n0 = gpu_step.make_step_batch_fused.launches
+          sk = step(s, tau, field_heights=hts)
+          qp, up = gpu_step._fused_plain(step.sd, s.q, s.u, tau, None, hts)
+          torch.cuda.synchronize()
+          assert gpu_step.make_step_batch_fused.launches == n0 + 1
+          dq = (sk.q - qp).abs().amax(1).cpu().numpy()
+          du = (sk.u - up).abs().amax(1).cpu().numpy()
+          assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99, name
+          assert dq.max() <= 5e-4 and du.max() <= 5e-3, name
+        s = step(s, tau, field_heights=hts)

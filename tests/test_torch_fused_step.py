@@ -26,8 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (flatten_jax_scene, host_step, jax_anymal_scene, load_golden,
-                             perturbed_states, torch_anymal_scene)
+from torch_port_util import (flatten_jax_scene, host_matches_twin, host_step, jax_anymal_scene,
+                             load_golden, perturbed_states, torch_anymal_scene)
 
 from raisimlib_tpu.models.model import JointType
 from raisimlib_tpu.world import World as JWorld
@@ -412,36 +412,14 @@ def test_terrain_kernel_tally_equals_twin(trot_sd):
   assert loads == 4 * (4 * 17 + 8)
 
 
-def _host_matches_twin(sd, host, q, u, pd, heights=None, median_du=1e-6):
-  """The host-compiled body and the twin on the same worlds: the card's two
-  tiers (99% of worlds within 2e-5 on q and 2e-4 on u, all within 5e-4 and
-  5e-3), and the median world within `median_du` on u."""
-  from raisimlib_torch.ops import gpu_step
-
-  B = q.shape[0]
-  ins = [np.ascontiguousarray(x, np.float32) for x in (q, u, np.zeros_like(pd), pd)]
-  hts = None if heights is None else np.ascontiguousarray(heights, np.float32)
-  qo, uo = np.zeros_like(ins[0]), np.zeros_like(ins[1])
-  host(*(x.ctypes.data for x in ins), None if hts is None else hts.ctypes.data,
-       0 if hts is None else hts[0].size, qo.ctypes.data, uo.ctypes.data, B)
-  with torch.inference_mode():
-    qp, up = gpu_step._fused_plain(sd, *(torch.tensor(x) for x in ins),
-                                   heights=None if hts is None else torch.tensor(hts))
-  dq = np.abs(qo - qp.numpy()).max(1)
-  du = np.abs(uo - up.numpy()).max(1)
-  assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
-  assert dq.max() <= 5e-4 and du.max() <= 5e-3
-  assert np.median(du) <= median_du
-
-
 def test_kernel_body_compiled_on_host_matches_twin(anymal_sd, tmp_path):
   """The generated body compiled as host C++ and run on the CPU, against the
   twin on 64 ANYmal worlds: the same operations in the same order, so only
   the host's libm (sinf, cosf) and rsqrt = 1/sqrt separate them, by an ulp
-  that the Gauss-Seidel sweeps can amplify (see _host_matches_twin)."""
+  that the Gauss-Seidel sweeps can amplify (see torch_port_util.host_matches_twin)."""
   g = load_golden()
   q, u = perturbed_states(g, 64, seed=8)
-  _host_matches_twin(anymal_sd, host_step(anymal_sd, tmp_path), q, u,
+  host_matches_twin(anymal_sd, host_step(anymal_sd, tmp_path), q, u,
                      np.tile(g["pd_targets"][0], (64, 1)))
 
 
@@ -454,7 +432,7 @@ def test_terrain_kernel_body_compiled_on_host_matches_twin(trot_sd, tmp_path):
   rng = np.random.RandomState(9)
   q, u = perturbed_states(g, 64, seed=9)
   hts = g["heights"][None] + 0.02 * rng.randn(64, 48, 24)
-  _host_matches_twin(sd, host_step(sd, tmp_path), q, u,
+  host_matches_twin(sd, host_step(sd, tmp_path), q, u,
                      np.tile(g["pd_targets"][0], (64, 1)), hts)
 
 
@@ -624,7 +602,7 @@ def test_k1b_tally_equals_twin():
 @pytest.mark.parametrize("name", ["stack", "spheres_capsule", "static_box"])
 def test_k1b_body_compiled_on_host_matches_twin(name, tmp_path):
   """K1b's body compiled as host C++ against the twin on 32 worlds with the
-  sphere pairs in contact, at the tiers of _host_matches_twin; the median
+  sphere pairs in contact, at the tiers of host_matches_twin; the median
   world within 5e-6 on u: each sphere pair's runtime frame takes an rsqrt,
   which the host computes as 1/sqrt, an ulp off, and the sliding box's slip
   searches amplify it more often than ANYmal's static-frame contacts do."""
@@ -634,5 +612,5 @@ def test_k1b_body_compiled_on_host_matches_twin(name, tmp_path):
   ts = _loose_scene(name, torch.float32)
   sd = gpu_step._analyze(ts, tp.StepConfig(), False)
   q, u = _contact_states(ts, name, 32, seed=16)
-  _host_matches_twin(sd, host_step(sd, tmp_path), q, u, np.zeros((32, ts.model.nv)),
+  host_matches_twin(sd, host_step(sd, tmp_path), q, u, np.zeros((32, ts.model.nv)),
                      median_du=5e-6)

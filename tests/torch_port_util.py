@@ -52,13 +52,15 @@ def flatten_jax_scene(scene):
   arrays.update(geom_params=np.asarray(g.params),
                 geom_offset_pos=np.asarray(g.offset_pos),
                 geom_offset_rot=np.asarray(g.offset_rot),
+                geom_mesh_verts=np.asarray(g.mesh_verts),
                 materials=np.asarray(scene.materials),
                 gravity=np.asarray(scene.gravity),
                 kp=np.asarray(scene.kp), kd=np.asarray(scene.kd))
   static = dict(name=m.name, parent=m.parent, joint_types=m.joint_types,
                 q_adr=m.q_adr, v_adr=m.v_adr, nq=m.nq, nv=m.nv,
                 body_names=m.body_names, gtype=g.gtype, geom_body=g.body,
-                geom_material=g.material, pairs=scene.pairs,
+                geom_material=g.material, geom_mesh_vcount=g.mesh_vcount,
+                pairs=scene.pairs,
                 constraints=tuple(scene.constraints), dt=scene.dt,
                 objects=scene.objects)
   if getattr(scene, "field", None) is not None:
@@ -66,6 +68,125 @@ def flatten_jax_scene(scene):
                   field_center=np.asarray(scene.field.center))
     static.update(field_size=(scene.field.size_x, scene.field.size_y))
   return arrays, static
+
+
+def load_chip_smoke():
+  """chip_smoke.py as a module (its scene builders and constants)."""
+  import importlib.util
+
+  path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "chip_smoke.py")
+  spec = importlib.util.spec_from_file_location("chip_smoke", path)
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
+# the debris scenes of the CPU tests: a 2.4 x 2.0 m field of 13 x 11 samples
+# and one of chip_smoke.py's debris bodies
+DEBRIS_FIELD = dict(shape=(13, 11), center=(0.1, -0.05), size=(2.4, 2.0))
+
+
+def jax_debris_scene(name, heights=None, ground=False):
+  """A JAX float64 world with the debris field (zero heights unless given),
+  the ground plane at z = -0.02 if `ground`, and debris body `name`."""
+  import jax.numpy as jnp
+  from raisimlib_tpu.ops import heightmap as jhm
+  from raisimlib_tpu.world import World
+
+  f = DEBRIS_FIELD
+  world = World(dt=0.002, dtype=jnp.float64)
+  if ground:
+    world.add_ground(-0.02)
+  world.add_heightmap(jhm.HeightField(
+      heights=jnp.asarray(np.zeros(f["shape"]) if heights is None else heights),
+      center=jnp.asarray(f["center"]), size_x=f["size"][0], size_y=f["size"][1]))
+  load_chip_smoke().add_debris(world, name)
+  return world.compile(joint_limits=False)
+
+
+def port_scene(jscene, dtype=torch.float64):
+  """The port's Scene of a JAX scene, on the CPU (convert.scene_from_numpy)."""
+  from raisimlib_torch import convert
+
+  return convert.scene_from_numpy(*flatten_jax_scene(jscene), device="cpu", dtype=dtype)
+
+
+def debris_drop_states(scene, n, seed):
+  """n per-world random terrains (+-5 cm) of the debris field and n debris
+  bodies over them, tilted, spinning slowly and falling at 1 m/s, each with
+  its deepest probe 1-3 mm above its terrain (placed by the port's narrow
+  phase): (heights, q, u) as float64 numpy."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
+
+  f = DEBRIS_FIELD
+  rng = np.random.RandomState(seed)
+  hts = rng.uniform(-0.05, 0.05, (n,) + f["shape"])
+  q = np.zeros((n, 7))
+  q[:, 0] = f["center"][0] + rng.uniform(-0.6, 0.6, n)
+  q[:, 1] = f["center"][1] + rng.uniform(-0.5, 0.5, n)
+  quat = np.array([1.0, 0.0, 0.0, 0.0]) + 0.3 * rng.randn(n, 4)
+  q[:, 3:] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+  q[:, 2] = 0.5
+  c = coll.collide(scene.geoms, scene.pairs, dynamics.fk(scene.model, torch.tensor(q)),
+                   scene.field.replace(heights=torch.tensor(hts)))
+  q[:, 2] += c.depth.amax(1).numpy() + rng.uniform(0.001, 0.003, n)
+  u = 0.1 * rng.randn(n, 6)
+  u[:, 5] = -1.0
+  return hts, q, u
+
+
+def debris_max_depth(scene, q, hts):
+  """The deepest active contact over the worlds (q, per-world heights)."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
+
+  c = coll.collide(scene.geoms, scene.pairs, dynamics.fk(scene.model, q),
+                   scene.field.replace(heights=hts))
+  return float((c.depth * c.active).max())
+
+
+def jax_debris_rollout(jscene, hts, q, u, steps):
+  """`steps` of JAX's step_batch(use_kernel=False) (jitted, float64) from
+  (q, u) on per-world heights hts: the final (q, u) as numpy."""
+  import jax
+  import jax.numpy as jnp
+  from raisimlib_tpu.ops import pipeline as jp
+  from raisimlib_tpu.ops.integrator import State as JState
+
+  n, nv = u.shape
+  h = jnp.asarray(hts)
+
+  def roll(s):
+    step = lambda s, _: (jp.step_batch(jscene, s, jnp.zeros((n, nv)), None,  # noqa: E731
+                                       field_heights=h, use_kernel=False), None)
+    return jax.lax.scan(step, s, None, length=steps)[0]
+
+  s = jax.jit(roll)(JState(q=jnp.asarray(q), u=jnp.asarray(u), t=jnp.zeros(n)))
+  return np.asarray(s.q), np.asarray(s.u)
+
+
+def host_matches_twin(sd, host, q, u, pd, heights=None, median_du=1e-6):
+  """The host-compiled body and the twin on the same worlds: the card's two
+  tiers (99% of worlds within 2e-5 on q and 2e-4 on u, all within 5e-4 and
+  5e-3), and the median world within `median_du` on u."""
+  from raisimlib_torch.ops import gpu_step
+
+  B = q.shape[0]
+  ins = [np.ascontiguousarray(x, np.float32) for x in (q, u, np.zeros_like(pd), pd)]
+  hts = None if heights is None else np.ascontiguousarray(heights, np.float32)
+  qo, uo = np.zeros_like(ins[0]), np.zeros_like(ins[1])
+  host(*(x.ctypes.data for x in ins), None if hts is None else hts.ctypes.data,
+       0 if hts is None else hts[0].size, qo.ctypes.data, uo.ctypes.data, B)
+  with torch.inference_mode():
+    qp, up = gpu_step._fused_plain(sd, *(torch.tensor(x) for x in ins),
+                                   heights=None if hts is None else torch.tensor(hts))
+  dq = np.abs(qo - qp.numpy()).max(1)
+  du = np.abs(uo - up.numpy()).max(1)
+  assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
+  assert dq.max() <= 5e-4 and du.max() <= 5e-3
+  assert np.median(du) <= median_du
 
 
 def perturbed_states(g, B, seed, dq=1e-3, du=1e-2):
