@@ -25,41 +25,46 @@ heightmaps, through their public entry points:
   5. the f32 replay of tests/goldens/anymal_balance.npz through
      Scene.step_batch, held to the batched path's gate (utils/parity.py);
   6. K2 times at the main path's shapes;
-  K1 path (the fused full step, ops/gpu_step.make_step_batch_fused):
+  K1 path (the fused full step, ops/gpu_step.make_step_batch_fused, 8 lanes
+  of a warp per world):
   7. K1 against its plain twin on the card, B = 4096, from perturbed standing
      states and from a state 20 steps into a rollout (contacts active), and
-     against the K2 path on the same inputs;
+     against the K2 path on the same inputs; then the tails (TAIL_BATCHES:
+     the last warp partly empty) against the twin and bitwise against the
+     same worlds of the full batch, and the full batch twice, bitwise;
   8. rollouts through K1, B = 16384 x H = 50;
   9. MPPI through make_contact_dyn_batch(fused="require"), as phase 4;
   10. the golden replay through K1, under the same gate as phase 5;
-  11. K1 times at B = 16384 (and B = 2048, the MPPI batch);
+  11. K1 times at B = 16384, 2048 (the MPPI batch), 1024 and 384, with
+      ptxas's registers and spills and the block's shared memory;
   terrain (ANYmal on a 12 x 6 m heightmap of 48 x 24 samples; 12 "hm_pt"
   slots, K1c):
   12. 64 fractal terrains from utils/terrain.generate (seed 11, z_scale 0.06)
       and the K1c source's size, tally and ptxas line;
   13. K1c against its twin and against the K2 path (Scene.step_batch with
       field_heights), B = 4096, one terrain per world, from perturbed
-      standing states and from 20 steps into a rollout;
+      standing states and from 20 steps into a rollout, and its tails;
   14. terrain rollouts through K1c, B = 16384 x H = 50, the 64 terrains tiled;
   15. the trot MPPI of examples/anymal_trot_heightmap.py through
       make_contact_dyn_batch(fused="require") with env_ctx: 4 terrains x 96
       samples, H = 16, 8 substeps, 150 ticks (3 s); no robot may fall;
   16. tests/goldens/anymal_trot_heightmap.npz through K1c and through the K2
       path (80 steps, f32), under the trot gate of utils/parity.py;
-  17. K1c times at B = 16384 and B = 384 (the trot batch);
+  17. K1c times at B = 16384, 2048, 1024 and 384 (the trot batch);
   the sphere-box stack (raisimlib_tpu/scenarios/sphere_box_stack.yaml, its
   values in STACK; "ss", "sb" and "sc" slots, K1b):
   18. K1b against its twin and against the K2 path: the stack at B = 4096
       from the start state (box kicked 0.3 m/s, noise 1e-3 m and 1e-2 m/s)
       and 200 steps into a rollout; two spheres and a capsule ("ss", "sc")
       and a sphere on a static box ("sb", body_b = -1), B = 1037, from a
-      state in which every sphere pair touches and 100 steps on;
+      state in which every sphere pair touches and 100 steps on; the
+      stack's tails;
   19. tests/goldens/sphere_box_stack.npz (400 steps, f32) through Scene.step,
       K1b and the K2 path, under the JAX package's gate (utils/parity.py);
   20. examples/sphere_box_stack.py batched through K1b: 10 s (5000 steps)
       of 16384 kicked stacks, noise on the positions and the box's velocity
       (STACK_DQ, STACK_DU), every world held to the example's four gates;
-  21. K1b times at B = 16384 and B = 1024;
+  21. K1b times at B = 16384, 2048, 1024 and 384;
   debris on terrain (one loose cylinder, cone or 32-vertex convex rock per
   world, DEBRIS, on phase 12's 64 terrains; "hm_cylpt", "hm_conept" and
   "hm_mesh" slots, K1c):
@@ -69,12 +74,13 @@ heightmaps, through their public entry points:
       with field_heights) at B = 4096, one terrain per world, from the drop
       states and 200 steps on (landed); the axis exactly vertical on a flat
       field, and a yawed cube mesh whose 4 bottom vertices tie, B = 1037;
+      each scene's tails 200 steps in;
   24. rollouts of B = 16384 x H = 50 per scene;
   25. the drop settles for 500 steps (1 s) at B = 16384: every world finite,
       its COM above the surface, still over the terrain, and not sinking
       (its deepest probe, by the port's pure narrow phase, under 5 mm deep
       at one step of the last 50 at least);
-  26. each source's times at B = 16384 and B = 1024, and its bound.
+  26. each source's times at B = 16384, 2048, 1024 and 384, and its bound.
 
 Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20
 and 24 and read just after: each path must launch its own kernel once per
@@ -244,6 +250,46 @@ def check_against_k2(torch, scene, step, s, tau, pd, label, hts=None):
        f"max |du| {float((s1.u - s2.u).abs().max()):.2e}")
   if over_q > 0.0 or over_u > 0.0:
     fail(f"{label}: K1 and the K2 path part beyond the kernel-vs-pure bounds")
+
+
+# batches whose last warp holds fewer worlds than it has room for (a warp
+# holds 32 // gpu_step.LANES worlds; a world past B runs on a clamped index and
+# stores nothing)
+TAIL_BATCHES = (1, 3, 383)
+
+
+def check_tails(torch, step, s, tau, pd, label, hts=None):
+  """K1 on the first TAIL_BATCHES worlds of s: each tail within
+  check_fused's tiers of the twin and bitwise equal to the same worlds of
+  the batch s; and s launched twice, bitwise equal (the lanes of a world
+  share its memory: a race would show as a difference). Returns the max abs
+  error against the twin."""
+  from raisimlib_torch.ops.integrator import State
+
+  full = step(s, tau, pd, field_heights=hts)
+  again = step(s, tau, pd, field_heights=hts)
+  torch.cuda.synchronize()
+  if not (torch.equal(full.q, again.q) and torch.equal(full.u, again.u)):
+    fail(f"{label}: two launches on the same inputs differ")
+  err = 0.0
+  for b in TAIL_BATCHES:
+    cut = lambda x: None if x is None else x[:b]    # noqa: E731
+    e, sk = check_fused(torch, step, State(q=s.q[:b], u=s.u[:b], t=s.t[:b]), tau[:b], cut(pd),
+                        f"{label}, B={b}", cut(hts))
+    if not (torch.equal(sk.q, full.q[:b]) and torch.equal(sk.u, full.u[:b])):
+      fail(f"{label}, B={b}: the tail's worlds differ from the same worlds of B={s.q.shape[0]}")
+    err = max(err, e)
+  note(f"  {label}: B={s.q.shape[0]} twice, bitwise equal; B={TAIL_BATCHES} bitwise equal to "
+       f"their worlds in it")
+  return err
+
+
+def source_figures(gs, _build, kern):
+  """What ptxas said about a fused-step source (registers, stack, spills,
+  static shared memory) and the block's shared memory, lanes and minimum
+  blocks per SM."""
+  return dict(_build.ptxas_figures(kern.name), smem_block_bytes=kern.smem_bytes,
+              lanes=gs.LANES, min_blocks=gs.min_blocks(kern.sd))
 
 
 K1B_KINDS = ("ss", "sb", "sc")
@@ -907,6 +953,7 @@ def run_debris(torch, gs, gc, _build, built, debris, steps, hts64, stream,
       errs.append(check_fused(torch, st, s, tau, None, f"{name}, 200 steps in", hts23)[0])
       check_against_k2(torch, sc, st, s, tau, None, f"{name}, K1c vs K2 path, 200 steps in",
                        hts23)
+      errs.append(check_tails(torch, st, s, tau, None, f"{name}, 200 steps in", hts23))
       src[name]["max_abs_err"] = max(errs)
     # the axis exactly vertical on a flat field (the downhill frame's
     # fallback, exact on every path), and the yawed cube's tied vertices
@@ -967,13 +1014,13 @@ def run_debris(torch, gs, gc, _build, built, debris, steps, hts64, stream,
       fail(f"{name}: {int(bad.sum())} of {B} worlds fail the settle gates: {gates}")
 
   # ---- 26. times --------------------------------------------------------------------------
-  note(f"phase 26: K1c (debris) times at B={B} and B={B_small}")
+  note(f"phase 26: K1c (debris) times at B={B}, 2048, {B_small} and 384")
   for name in DEBRIS_NAMES:
     sc, st = debris[name], steps[name]
     lib = _build.load(st.kernel.name)
     times = {}
     with torch.inference_mode():
-      for b in (B, B_small):
+      for b in (B, 2048, B_small, 384):
         hb = hts[:b].contiguous()
         sb = debris_states(torch, sc, hb, seed=26)
         for _ in range(200):                          # landed
@@ -995,13 +1042,16 @@ def run_debris(torch, gs, gc, _build, built, debris, steps, hts64, stream,
     src[name].update(ms=times[B][0], kernel_only_ms=times[B][1], plain_ms=plain_ms,
                      bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
-                     **{f"ms_b{B_small}": times[B_small][0],
-                        f"kernel_only_ms_b{B_small}": times[B_small][1]})
+                     ptxas=source_figures(gs, _build, st.kernel),
+                     **{f"{k}_b{b}": times[b][i] for b in times if b != B
+                        for i, k in enumerate(("ms", "kernel_only_ms"))})
     note(f"  {name}: B={B}: wrapper {times[B][0]:.3f} ms (kernel alone {times[B][1]:.3f} ms), "
          f"plain twin {plain_ms:.3f} ms; bound {max(t_bytes, t_ops):.4f} ms "
          f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.2f} GFLOP -> "
-         f"{t_ops:.4f} ms); B={B_small}: wrapper {times[B_small][0]:.3f} ms (kernel alone "
-         f"{times[B_small][1]:.3f} ms)")
+         f"{t_ops:.4f} ms); " + "; ".join(
+             f"B={b}: wrapper {times[b][0]:.3f} ms (kernel alone {times[b][1]:.3f} ms)"
+             for b in times if b != B))
+    note(f"  {name}: {src[name]['ptxas']}")
 
   # the entry's top-level numbers are the rock's (the widest source); every
   # source's own are under "sources"
@@ -1171,7 +1221,8 @@ def main():
       s = fused(s, tau7, pd7)
     err_b, _ = check_fused(torch, fused, s, tau7, pd7, "20 steps into a rollout")
     check_against_k2(torch, scene, fused, s, tau7, pd7, "K1 vs K2 path, 20 steps in")
-  k1_err = max(err_a, err_b)
+    err_c = check_tails(torch, fused, s, tau7, pd7, "20 steps in")
+  k1_err = max(err_a, err_b, err_c)
 
   # ---- 8. K1 rollouts ----------------------------------------------------------
   note(f"phase 8: make_step_batch_fused (K1) rollouts, B={B}, H={H}")
@@ -1200,12 +1251,12 @@ def main():
   golden_replay(torch, fused_for, "K1")
 
   # ---- 11. K1 times ----------------------------------------------------------------
-  note(f"phase 11: K1 times at B={B} (and B=2048, the MPPI batch)")
+  note(f"phase 11: K1 times at B={B}, 2048 (the MPPI batch), 1024 and 384")
   lib = _build.load(kern.name)
   stream = torch.cuda.current_stream().cuda_stream
   k1_times = {}
   with torch.inference_mode():
-    for b, seed in ((B, 2), (2048, 6)):
+    for b, seed in ((B, 2), (2048, 6), (1024, 7), (384, 8)):
       sb, pdb, _ = standing_states(torch, scene, b, seed=seed)
       taub = torch.zeros_like(pdb)
       qo, uo = torch.empty_like(sb.q), torch.empty_like(sb.u)
@@ -1223,9 +1274,10 @@ def main():
   note(f"  B={B}: wrapper {ms1:.3f} ms (kernel alone {kernel1_ms:.3f} ms), plain twin "
        f"{plain1_ms:.3f} ms; bound {max(t_bytes1, t_ops1):.4f} ms ({nbytes1 / 1e6:.1f} MB "
        f"-> {t_bytes1:.4f} ms, {nops1 / 1e9:.2f} GFLOP -> {t_ops1:.4f} ms)")
-  note(f"  B=2048: wrapper {k1_times[2048][0]:.3f} ms (kernel alone "
-       f"{k1_times[2048][1]:.3f} ms); MPPI through K1: kernel time {100 * dev_share:.1f}% "
-       f"of the wall time")
+  note("  " + "; ".join(f"B={b}: wrapper {k1_times[b][0]:.3f} ms (kernel alone "
+                       f"{k1_times[b][1]:.3f} ms)" for b in k1_times if b != B)
+       + f"; MPPI through K1: kernel time {100 * dev_share:.1f}% of the wall time")
+  note(f"  K1 source: {source_figures(gs, _build, kern)}")
   k1 = {
       "name": "fused_step (K1a, cone_solve K3 inlined)",
       "route": "cuda",
@@ -1242,10 +1294,11 @@ def main():
       "bound_ms": max(t_bytes1, t_ops1),
       "bound_by": "bytes" if t_bytes1 >= t_ops1 else "operations",
       "library_ms": None,
-      "ms_b2048": k1_times[2048][0],
-      "kernel_only_ms_b2048": k1_times[2048][1],
+      **{f"{k}_b{b}": k1_times[b][i] for b in k1_times if b != B
+         for i, k in enumerate(("ms", "kernel_only_ms"))},
       "ops_per_world": kern.ops_per_world,
       "build_s": built.get(kern.name),
+      "ptxas": source_figures(gs, _build, kern),
   }
 
   # ---- 12. terrain scene and K1c build ------------------------------------------------
@@ -1277,7 +1330,8 @@ def main():
     errc_b, _ = check_fused(torch, fused_c, s, tau13, pd13, "terrain, 20 steps into a rollout",
                             hts13)
     check_against_k2(torch, tscene, fused_c, s, tau13, pd13, "K1c vs K2 path, 20 steps in", hts13)
-  k1c_err = max(errc_a, errc_b)
+    errc_c = check_tails(torch, fused_c, s, tau13, pd13, "terrain, 20 steps in", hts13)
+  k1c_err = max(errc_a, errc_b, errc_c)
 
   # ---- 14. terrain rollouts through K1c -------------------------------------------------
   note(f"phase 14: terrain rollouts through K1c, B={B}, H={H}, 64 terrains tiled")
@@ -1320,11 +1374,11 @@ def main():
   trot_dev_k2 = trot_golden(torch, lambda sc: lambda st, p: sc.step_batch(st, pd_target=p), "K2")
 
   # ---- 17. K1c times -----------------------------------------------------------------------
-  note(f"phase 17: K1c times at B={B} (and B=384, the trot batch)")
+  note(f"phase 17: K1c times at B={B}, 2048, 1024 and 384 (the trot batch)")
   lib_c = _build.load(kern_c.name)
   k1c_times = {}
   with torch.inference_mode():
-    for b, seed in ((B, 17), (384, 18)):
+    for b, seed in ((B, 17), (2048, 19), (1024, 20), (384, 18)):
       hb = hts64.repeat((b + 63) // 64, 1, 1)[:b].contiguous()
       sb, pdb, _ = terrain_states(torch, tscene, hb, seed=seed)
       taub = torch.zeros_like(pdb)
@@ -1347,8 +1401,10 @@ def main():
        f"{plain_c_ms:.3f} ms; bound {max(t_bytes_c, t_ops_c):.4f} ms ({nbytes_c / 1e6:.1f} MB "
        f"-> {t_bytes_c:.4f} ms, {nops_c / 1e9:.2f} GFLOP -> {t_ops_c:.4f} ms)")
   trot_share = k1c_launches_trot * k1c_times[384][1] / 1e3 / t_trot
-  note(f"  B=384: wrapper {k1c_times[384][0]:.3f} ms (kernel alone {k1c_times[384][1]:.3f} ms); "
-       f"trot MPPI: kernel time {100 * trot_share:.1f}% of the wall time")
+  note("  " + "; ".join(f"B={b}: wrapper {k1c_times[b][0]:.3f} ms (kernel alone "
+                       f"{k1c_times[b][1]:.3f} ms)" for b in k1c_times if b != B)
+       + f"; trot MPPI: kernel time {100 * trot_share:.1f}% of the wall time")
+  note(f"  K1c source: {source_figures(gs, _build, kern_c)}")
   k1c = {
       "name": "fused_step (K1c, hm_pt slots: heightmap probe + riser march; cone_solve K3 "
               "inlined)",
@@ -1366,11 +1422,12 @@ def main():
       "bound_ms": max(t_bytes_c, t_ops_c),
       "bound_by": "bytes" if t_bytes_c >= t_ops_c else "operations",
       "library_ms": None,
-      "ms_b384": k1c_times[384][0],
-      "kernel_only_ms_b384": k1c_times[384][1],
+      **{f"{k}_b{b}": k1c_times[b][i] for b in k1c_times if b != B
+         for i, k in enumerate(("ms", "kernel_only_ms"))},
       "ops_per_world": kern_c.ops_per_world,
       "height_loads_per_world": kern_c.loads_per_world,
       "build_s": built.get(kern_c.name),
+      "ptxas": source_figures(gs, _build, kern_c),
       "trot_golden_max_dtau": {"K1c": trot_dev_k1, "K2": trot_dev_k2},
   }
 
@@ -1390,6 +1447,7 @@ def main():
     if float(z_sph.min()) < 0.40:
       fail("the sphere is not on the box 200 steps into the stack rollout")
     k1b_errs.append(check_k1b(torch, sscene, fused_b, s, tau18, "stack, 200 steps in"))
+    k1b_errs.append(check_tails(torch, fused_b, s, tau18, None, "stack, 200 steps in"))
     for key, sc in k1b_scenes.items():
       st = k1b_steps[key]
       note(f"  {key}: slots {sorted(x.kind for x in st.sd.slots)}, body_b "
@@ -1444,11 +1502,11 @@ def main():
        f"{gates_all}")
 
   # ---- 21. K1b times -----------------------------------------------------------------------
-  note(f"phase 21: K1b times at B={B} and B=1024")
+  note(f"phase 21: K1b times at B={B}, 2048, 1024 and 384")
   lib_b = _build.load(kern_b.name)
   k1b_times = {}
   with torch.inference_mode():
-    for b, seed in ((B, 21), (1024, 22)):
+    for b, seed in ((B, 21), (2048, 23), (1024, 22), (384, 24)):
       sb = loose_states(torch, sscene, b, seed=seed, kick=kick)
       taub = torch.zeros_like(sb.u)
       qo, uo = torch.empty_like(sb.q), torch.empty_like(sb.u)
@@ -1466,7 +1524,9 @@ def main():
   note(f"  B={B}: wrapper {msb:.3f} ms (kernel alone {kernel_b_ms:.3f} ms), plain twin "
        f"{plain_b_ms:.3f} ms; bound {max(t_bytes_b, t_ops_b):.4f} ms ({nbytes_b / 1e6:.1f} MB "
        f"-> {t_bytes_b:.4f} ms, {nops_b / 1e9:.2f} GFLOP -> {t_ops_b:.4f} ms)")
-  note(f"  B=1024: wrapper {k1b_times[1024][0]:.3f} ms (kernel alone {k1b_times[1024][1]:.3f} ms)")
+  note("  " + "; ".join(f"B={b}: wrapper {k1b_times[b][0]:.3f} ms (kernel alone "
+                       f"{k1b_times[b][1]:.3f} ms)" for b in k1b_times if b != B))
+  note(f"  K1b source: {source_figures(gs, _build, kern_b)}")
   k1b = {
       "name": "fused_step (K1b, ss/sb/sc slots: sphere vs sphere, box, capsule; cone_solve K3 "
               "inlined)",
@@ -1482,10 +1542,11 @@ def main():
       "bound_ms": max(t_bytes_b, t_ops_b),
       "bound_by": "bytes" if t_bytes_b >= t_ops_b else "operations",
       "library_ms": None,
-      "ms_b1024": k1b_times[1024][0],
-      "kernel_only_ms_b1024": k1b_times[1024][1],
+      **{f"{k}_b{b}": k1b_times[b][i] for b in k1b_times if b != B
+         for i, k in enumerate(("ms", "kernel_only_ms"))},
       "ops_per_world": kern_b.ops_per_world,
       "build_s": built.get(kern_b.name),
+      "ptxas": source_figures(gs, _build, kern_b),
       "stack_worlds": B20,
       "stack_world_steps_per_s": stack_rate,
       "stack_golden_max_dq": stack_dev,

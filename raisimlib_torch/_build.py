@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,8 +44,23 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: dict = {}
-# what ptxas said about each kernel (registers, spills), kept for the record
+# what nvcc and ptxas said about each kernel built here, kept for the record
+# (`ptxas_figures` reads registers, stack, spills and shared memory from it)
 build_logs: dict = {}
+_PTXAS = {"registers": r"Used (\d+) registers", "stack_bytes": r"(\d+) bytes stack frame",
+          "spill_stores": r"(\d+) bytes spill stores", "spill_loads": r"(\d+) bytes spill loads",
+          "smem_bytes": r"(\d+) bytes smem"}
+
+
+def ptxas_figures(name: str) -> dict:
+  """ptxas's figures for the kernel `name`, from its -v output: registers per
+  thread, stack frame, spill stores and loads, and static shared memory per
+  block (bytes; dynamic shared memory is set at launch and not counted). The
+  largest over the file's kernels; 0 where ptxas names none, and None for
+  each when this process did not build the library (it was on disk)."""
+  log = build_logs.get(name)
+  return {k: None if log is None else max((int(x) for x in re.findall(pat, log)), default=0)
+          for k, pat in _PTXAS.items()}
 
 
 def _nvcc() -> str:

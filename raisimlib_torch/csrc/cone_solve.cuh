@@ -1,9 +1,12 @@
-// Exact per-contact Coulomb-cone impulse, one world per thread.
+// Exact per-contact Coulomb-cone impulse: `cone_solve`, one world per thread
+// (the matrix-free solve, mf_solve.cu), and `cone_solve_lanes`, the same
+// solve with its angular grid split over the lanes of one world (the fused
+// full-step kernel, whose generated head defines the lane regions).
 //
 // Replaces the TPU device function raisimlib_tpu/ops/pallas_contact.py
 // `_cone_solve_vec` + `_stick_vec`, which the TPU kernels inline into their
-// Gauss-Seidel loops. It is a __device__ function so that the matrix-free
-// solve (mf_solve.cu) and the fused full-step kernel can both include it.
+// Gauss-Seidel loops. Both are __device__ functions, inlined by their
+// kernels.
 //
 // Cases, as in ops/contact.py `cone_solve` (RA-L 2018 semantics):
 //   stick: lam = -Gii^-1 c (cofactor inverse), accepted strictly inside the
@@ -50,13 +53,12 @@ __device__ __forceinline__ void stick_solve(const float* g, float c0, float c1,
   out[2] = -(k02 * c0 + k12 * c1 + k22 * c2) * inv_det;
 }
 
-// E(theta) on the slip curve (kConeBig where infeasible); also s, d0, d1.
-__device__ __forceinline__ float cone_curve(const float* g, float c0, float c1,
-                                            float c2, float mu, float theta,
-                                            float* s_out, float* d0_out,
-                                            float* d1_out) {
-  float sn, cs;
-  sincosf(theta, &sn, &cs);
+// E on the slip curve at the angle whose sine and cosine are sn, cs
+// (kConeBig where infeasible); also s, d0, d1.
+__device__ __forceinline__ float cone_curve_sc(const float* g, float c0, float c1,
+                                               float c2, float mu, float sn, float cs,
+                                               float* s_out, float* d0_out,
+                                               float* d1_out) {
   const float d0 = mu * cs;
   const float d1 = mu * sn;
   const float gd0 = g[0] * d0 + g[1] * d1 + g[2];
@@ -73,6 +75,16 @@ __device__ __forceinline__ float cone_curve(const float* g, float c0, float c1,
   *d0_out = d0;
   *d1_out = d1;
   return feas ? E : kConeBig;
+}
+
+// E(theta) on the slip curve; also s, d0, d1.
+__device__ __forceinline__ float cone_curve(const float* g, float c0, float c1,
+                                            float c2, float mu, float theta,
+                                            float* s_out, float* d0_out,
+                                            float* d1_out) {
+  float sn, cs;
+  sincosf(theta, &sn, &cs);
+  return cone_curve_sc(g, c0, c1, c2, mu, sn, cs, s_out, d0_out, d1_out);
 }
 
 __device__ __forceinline__ float cone_curve_E(const float* g, float c0, float c1,
@@ -150,5 +162,109 @@ __device__ __forceinline__ void cone_solve(const float* g, float c0, float c1,
   out[1] = stick_ok ? ls[1] : (open_ok ? 0.0f : l1);
   out[2] = stick_ok ? ls[2] : (open_ok ? 0.0f : s_safe);
 }
+
+#ifdef FS_LANES_BEGIN
+// The grid's sines and cosines, trig[2 k] and trig[2 k + 1] = sincosf(k
+// dtheta), written in a lane region: they are the same for every solve.
+__device__ __forceinline__ void cone_grid_trig(const ConeConsts& cc, float* trig,
+                                               const int fs_lane) {
+  FS_LANES_BEGIN
+  for (int k = l; k < cc.n_grid; k += FS_LANES)
+    sincosf((float)k * cc.dtheta, trig + 2 * k, trig + 2 * k + 1);
+  FS_LANES_END
+}
+
+// cone_solve with the angular search split over the FS_LANES lanes of one
+// world (the fused step's lane regions, defined by its generated head): lane
+// l evaluates the grid points k = l (mod FS_LANES) into the world's shared E
+// (n_grid floats), from the sines and cosines of cone_grid_trig, then, in
+// each refinement, the points j = l (mod FS_LANES) of the 5 into E[0..4].
+// Everything else, the first-match argmins over E included, every lane runs
+// alike and gets the same values. Each value is the expression cone_solve
+// computes (sincosf of the same angle; a refinement point's offset, 0.5 (j -
+// 2) times the span, is exact, as cone_solve's table entries are), so the
+// impulse is cone_solve's for any FS_LANES.
+__device__ __forceinline__ void cone_solve_lanes(const float* gs, float c0, float c1,
+                                                 float c2, float mu, const ConeConsts& cc,
+                                                 const float* trig, float* E,
+                                                 const int fs_lane, float* out) {
+  float g[6];                         // gs may be shared: read it once, before the syncs
+#pragma unroll
+  for (int k = 0; k < 6; ++k) g[k] = gs[k];
+  float ls[3];
+  stick_solve(g, c0, c1, c2, ls);
+  const float t_norm = sqrtf(ls[0] * ls[0] + ls[1] * ls[1] + 1e-20f);
+  const bool stick_ok = ((ls[2] > 0.0f) && (t_norm <= mu * ls[2])) || (mu > 1e6f);
+  const bool open_ok = c2 >= 0.0f;
+
+  FS_LANES_BEGIN
+#pragma unroll
+  for (int i = 0; i < (cc.n_grid + FS_LANES - 1) / FS_LANES; ++i) {
+    const int k = l + i * FS_LANES;
+    float s, d0, d1;
+    if (k < cc.n_grid)
+      E[k] = cone_curve_sc(g, c0, c1, c2, mu, trig[2 * k], trig[2 * k + 1], &s, &d0, &d1);
+  }
+  FS_LANES_END
+  bool grid_nan = false;
+  int kmin = 0;
+  float Emin = kConeBig;
+#pragma unroll
+  for (int k = 0; k < cc.n_grid; ++k) {
+    const float Ek = E[k];
+    if (Ek != Ek) {
+      grid_nan = true;
+    } else if (k == 0 || Ek < Emin) {
+      Emin = Ek;
+      kmin = k;
+    }
+  }
+  const bool any_feas = !grid_nan && (Emin < kConeBig);
+  float theta_b = grid_nan ? 0.0f : (float)kmin * cc.dtheta;
+
+  float E0 = 0.0f, Em = 0.0f, Ep = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float span = r == 0 ? cc.span1 : cc.span2;
+    FS_LANES_BEGIN
+#pragma unroll 1
+    for (int j = l; j < 5; j += FS_LANES)
+      E[j] = cone_curve_E(g, c0, c1, c2, mu, theta_b + 0.5f * (float)(j - 2) * span);
+    FS_LANES_END
+    float E5[5];
+    bool nan5 = false;
+    int k5 = 0;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) E5[j] = E[j];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      if (E5[j] != E5[j]) nan5 = true;
+      else if (E5[j] < E5[k5] || E5[k5] != E5[k5]) k5 = j;
+    }
+    if (nan5) {
+      theta_b = E0 = Em = Ep = 0.0f;
+    } else {
+      theta_b = theta_b + 0.5f * (float)(k5 - 2) * span;
+      E0 = E5[k5];
+      Em = E5[(k5 + 4) % 5];
+      Ep = E5[(k5 + 1) % 5];
+    }
+  }
+  const float denom = Em - 2.0f * E0 + Ep;
+  float off = fabsf(denom) > 1e-30f ? 0.5f * (Em - Ep) / (denom + 1e-30f) : 0.0f;
+  off = fminf(fmaxf(off, -1.0f), 1.0f);
+  theta_b = theta_b + off * cc.h;
+
+  float s_b, d0_b, d1_b;
+  cone_curve(g, c0, c1, c2, mu, theta_b, &s_b, &d0_b, &d1_b);
+  const float s_safe = any_feas ? s_b : -c2 / (g[5] + 1e-20f);
+  const float l0 = any_feas ? s_safe * d0_b : 0.0f;
+  const float l1 = any_feas ? s_safe * d1_b : 0.0f;
+
+  out[0] = stick_ok ? ls[0] : (open_ok ? 0.0f : l0);
+  out[1] = stick_ok ? ls[1] : (open_ok ? 0.0f : l1);
+  out[2] = stick_ok ? ls[2] : (open_ok ? 0.0f : s_safe);
+}
+#endif  // FS_LANES_BEGIN
 
 }  // namespace rsl

@@ -34,7 +34,12 @@ interface (`_Val`) with two back ends:
     tensors use. It follows the dtype of its inputs.
   * `_CudaOps`: each operation prints one CUDA statement into a named
     temporary. This gives the body of the kernel, which csrc/fused_step.cuh
-    frames (one world per thread) and `_build` compiles for sm_90a.
+    frames (LANES = 8 lanes of a warp per world) and `_build` compiles for
+    sm_90a. The lanes run the serial chain alike and split its parallel
+    parts in lane regions: phase F's right-hand columns, the cone solve's
+    angular grid, and the entries of z in the W updates, over the world's
+    shared memory (`_smem_layout`). Only the lane that computes a value
+    changes, not its expression.
 
 The kernel and its twin therefore run the same sequence of operations, and
 both stay diffable phase by phase against the JAX emitter. A folded constant
@@ -43,7 +48,7 @@ to float32). Both back ends tally the operations they run per world, loop
 bodies times their trip counts; chip_smoke.py's bound for the kernel uses the
 kernel's tally.
 
-On a heightmap the kernel reads each world's heights directly: a thread
+On a heightmap the kernel reads each world's heights directly: each lane
 loads the heights of the cells its probes land in (`_emit_hm_probe`), from a
 (B, nx, ny) tensor whose world stride is 0 when every world shares the
 scene's field. The TPU kernel instead cut a root-centred patch per world in
@@ -75,6 +80,16 @@ from raisimlib_torch.ops.integrator import State
 
 class FusedStepUnsupported(Exception):
   """Scene outside the fused kernel's supported class; use the K2 path."""
+
+
+# The kernel's shape: LANES lanes of a warp per world (FS_LANES), one warp
+# per block; a block may hold at most SMEM_BLOCK_LIMIT bytes of shared
+# memory (227 KB on an H100, dynamic above 48 KB). An SM holds SM_SMEM bytes
+# of its blocks' shared memory, each block 1 KB more than it asks for.
+LANES = 8
+BLOCK = 32
+SMEM_BLOCK_LIMIT = 232448
+SM_SMEM = 233472
 
 
 # ---------------------------------------------------------------------------
@@ -845,13 +860,17 @@ def _lit(c) -> str:
 
 class _CudaOps:
   """The kernel's back end: each operation prints one statement into a new
-  temporary. `ops` counts operations per world, a loop body times its trip
-  count."""
+  temporary, which every lane of the world computes alike. Phase F, the cone
+  solve's angular grid and the W updates print lane regions instead
+  (FS_LANES_BEGIN ... FS_LANES_END: lane l takes the items l, l + FS_LANES,
+  ...), over the world's shared arrays at the offsets `smem`
+  (`_smem_layout`). `ops` counts operations per world, a loop body times its
+  trip count, whichever lane runs it."""
 
   _FN = {"sqrt": "sqrtf", "rsqrt": "rsqrtf", "sin": "sinf", "cos": "cosf",
          "maximum": "fmaxf", "minimum": "fminf", "floor": "floorf", "abs": "fabsf"}
 
-  def __init__(self, ny: int = 0):
+  def __init__(self, ny: int = 0, smem=None):
     self.lines = []
     self.n = 0
     self.ops = 0
@@ -859,6 +878,8 @@ class _CudaOps:
     self.mult = 1
     self.depth = 1
     self.ny = ny                # heightmap row length: heights[i, j] at hts[i * ny + j]
+    self.smem = smem or {}      # shared array -> offset in the world's slice (floats)
+    self.packed = 0             # Gii blocks packed so far
 
   def emit(self, line: str):
     self.lines.append("  " * self.depth + line)
@@ -893,7 +914,7 @@ class _CudaOps:
     return name
 
   def height(self, cell, di: int, dj: int):
-    """heights[i + di, j + dj] of this thread's world (a load, not an
+    """heights[i + di, j + dj] of this lane's world (a load, not an
     operation)."""
     self.loads += self.mult
     return self._def("float", f"__ldg(hts + {cell} + {di * self.ny + dj})", count=False)
@@ -932,13 +953,35 @@ class _CudaOps:
     return self._def("float", f"{self.e(c)} ? 1.0f : 0.0f")
 
   def cells(self, name, n):
+    """Mutable per-world values, zeroed: in the world's shared memory if the
+    layout holds `name` (z, which the W updates' lane regions write), else
+    in each lane's own array (lambda, which serial code writes)."""
+    if name in self.smem:
+      self.emit(f"float* const {name} = fs_smem + {self.smem[name]};")
+      self._lanes_begin()
+      self.emit(f"for (int k = l; k < {n}; k += FS_LANES) {name}[k] = 0.0f;")
+      self._lanes_end()
+      return _CudaCells(self, name, shared=True)
     self.emit(f"float {name}[{n}];")
     self.emit(f"for (int k = 0; k < {n}; ++k) {name}[k] = 0.0f;")
     return _CudaCells(self, name)
 
-  def _loop(self, var, n):
+  def _lanes_begin(self):
+    self.emit("FS_LANES_BEGIN")
+    self.depth += 1
+
+  def _lanes_end(self):
+    self.depth -= 1
+    self.emit("FS_LANES_END")
+
+  def _loop(self, var, n, lanes=False):
+    """A runtime loop over n items (a lane's share of them if `lanes`); the
+    tally counts the body n times."""
     self.emit("#pragma unroll 1")
-    self.emit(f"for (int {var} = 0; {var} < {n}; ++{var}) {{")
+    if lanes:
+      self.emit(f"for (int {var} = l; {var} < {n}; {var} += FS_LANES) {{")
+    else:
+      self.emit(f"for (int {var} = 0; {var} < {n}; ++{var}) {{")
     self.depth += 1
     self.mult *= n
 
@@ -953,64 +996,118 @@ class _CudaOps:
     self._end_loop(n)
 
   def pack(self, name, vals):
-    self.emit(f"const float {name}[{len(vals)}] = {{{', '.join(self.e(v) for v in vals)}}};")
+    """A cone's hoisted Gii entries as an array in the world's shared memory
+    (written in a lane region), with each runtime value rebound to its
+    shared copy: the sweeps then read the 6 ncone entries from there rather
+    than hold them in registers across their loop."""
+    off = self.smem["gii"] + 6 * self.packed
+    self.packed += 1
+    self.emit(f"float* const {name} = fs_smem + {off};")
+    self._lanes_begin()
+    for k, v in enumerate(vals):
+      self.emit(f"if (l == {k} % FS_LANES) {name}[{k}] = {self.e(v)};")
+    self._lanes_end()
+    for k, v in enumerate(vals):
+      if isinstance(v, _Val):
+        v.x = f"{name}[{k}]"
     return name
 
   def cone_solve(self, g, c, mu: float, n_grid: int):
+    """csrc/cone_solve.cuh's lane-split solve, its energies in the world's
+    shared E."""
     name = f"ln{self.n}"
     self.n += 1
     self.emit(f"float {name}[3];")
-    self.emit(f"rsl::cone_solve({g}, {', '.join(self.e(x) for x in c)}, {_lit(mu)}, "
-              f"cc, {name});")
+    self.emit(f"rsl::cone_solve_lanes({g}, {', '.join(self.e(x) for x in c)}, {_lit(mu)}, "
+              f"cc, fs_smem + {self.smem['trig']}, fs_smem + {self.smem['E']}, fs_lane, "
+              f"{name});")
     self.ops += self.mult * gpu_contact.cone_solve_ops(n_grid)
     return [_Val(self, f"{name}[{a}]") for a in range(3)]
 
   def solve_columns(self, Jrows, rhs0, L, invd):
-    """Phase F as a loop over the nw + 1 right-hand columns of a per-thread
-    array jt (column c at jt[c * nv], J^T columns then rhs0); each column's
-    nv entries are solved in registers. Returns (W, vf column)."""
+    """Phase F in one lane region over the world's shared jt (column c at
+    jt[c * nv]: the nw columns of J^T, then rhs0): lane l fills the columns c
+    = l (mod FS_LANES) and solves each in place, its nv entries in
+    registers. Each distinct runtime value of J also goes to a slot of the
+    shared jr, and Jrows' entries are pointed there: phases G and H then
+    read J from shared memory rather than hold it in registers across the
+    sweeps. Returns (W, vf column)."""
     nv, nw = len(rhs0), len(Jrows)
     ncol = nw + 1
-    self.emit(f"float jt[{ncol * nv}];")
-    self.emit(f"for (int k = 0; k < {ncol * nv}; ++k) jt[k] = 0.0f;")
-    for row in range(nw):
-      for j, val in Jrows[row].items():
-        self.emit(f"jt[{row * nv + j}] = {self.e(val)};")
-    for j in range(nv):
-      self.emit(f"jt[{nw * nv + j}] = {self.e(rhs0[j])};")
-    self._loop("c", ncol)
+    slot = {}                                  # runtime J value -> its jr slot
+    for row in Jrows:
+      for val in row.values():
+        if isinstance(val, _Val):
+          slot.setdefault(val.x, len(slot))
+    if len(slot) > self.smem["jr_size"]:
+      raise AssertionError(f"{len(slot)} runtime J entries, room for {self.smem['jr_size']}")
+    self.emit(f"float* const jt = fs_smem + {self.smem['jt']};")
+    self.emit(f"float* const jr = fs_smem + {self.smem['jr']};")
+    self._lanes_begin()
+    self.emit(f"for (int c = l; c < {ncol}; c += FS_LANES)")
+    self.emit(f"  for (int k = 0; k < {nv}; ++k) jt[c * {nv} + k] = 0.0f;")
+    for c in range(ncol):
+      entries = Jrows[c].items() if c < nw else enumerate(rhs0)
+      self.emit(f"if (l == {c} % FS_LANES) {{")
+      for j, val in entries:
+        self.emit(f"  jt[{c * nv + j}] = {self.e(val)};")
+      self.emit("}")
+    for x, k in slot.items():
+      self.emit(f"if (l == {k} % FS_LANES) jr[{k}] = {x};")
+    for row in Jrows:
+      for j, val in row.items():
+        if isinstance(val, _Val):
+          row[j] = _Val(self, f"jr[{slot[val.x]}]")
+    self._loop("c", ncol, lanes=True)
     self.emit(f"float* col = jt + c * {nv};")
     x = [_Val(self, f"col[{i}]") for i in range(nv)]
     _tri_solve(x, L, invd)
     for i in range(nv):
       self.emit(f"col[{i}] = {self.e(x[i])};")
     self._end_loop(ncol)
+    self._lanes_end()
     return _CudaRows(self, nv), [_Val(self, f"jt[{nw * nv + j}]") for j in range(nv)]
 
   def axpy(self, z, W, rows, ds):
-    for k in range(W.nv):
-      acc = W.elem(rows[0], k) * ds[0]
-      for r, d in zip(rows[1:], ds[1:]):
-        acc = acc + W.elem(r, k) * d
-      z.set(k, z.get(k) + acc)
+    """z += sum_a W[rows[a]] * ds[a] in a lane region: lane l updates the
+    entries k = l (mod FS_LANES) of the shared z, each in the twin's order,
+    (W0 d0 + W1 d1) + W2 d2, then z + that."""
+    nv = W.nv
+    terms = [f"jt[{r * nv} + k] * {self.e(d)}" for r, d in zip(rows, ds)]
+    self._lanes_begin()
+    self.emit("#pragma unroll")                 # a constant trip count: the loads overlap
+    self.emit(f"for (int i = 0; i < ({nv} + FS_LANES - 1) / FS_LANES; ++i) {{")
+    self.emit("  const int k = l + i * FS_LANES;")
+    self.emit(f"  if (k >= {nv}) break;")
+    self.emit(f"  float acc = {terms[0]};")
+    for t in terms[1:]:
+      self.emit(f"  acc = acc + {t};")
+    self.emit(f"  {z.name}[k] = {z.name}[k] + acc;")
+    self.emit("}")
+    self.ops += self.mult * nv * 2 * len(rows)
+    self._lanes_end()
 
 
 class _CudaCells:
-  """Mutable per-thread array (z, lambda). `get` copies the current value
-  into a temporary, so that a later `set` does not change what was read."""
+  """Mutable per-world values (z, lambda). `get` copies the current value
+  into a temporary, so that a later `set` does not change what was read.
+  Shared cells are written in lane regions only (`_CudaOps.axpy`)."""
 
-  def __init__(self, k, name):
-    self.k, self.name = k, name
+  def __init__(self, k, name, shared=False):
+    self.k, self.name, self.shared = k, name, shared
 
   def get(self, i):
     return self.k._def("float", f"{self.name}[{i}]", count=False)
 
   def set(self, i, v):
+    if self.shared:
+      raise AssertionError(f"serial code would write the shared {self.name}")
     self.k.emit(f"{self.name}[{i}] = {self.k.e(v)};")
 
 
 class _CudaRows:
-  """The rows of W = J M^-1 in the kernel: row r, dof j at jt[r * nv + j]."""
+  """The rows of W = J M^-1 in the kernel: row r, dof j at jt[r * nv + j],
+  in the world's shared memory."""
 
   def __init__(self, k, nv):
     self.k, self.nv = k, nv
@@ -1643,12 +1740,32 @@ def _fused_plain(sd: _StaticData, q, u, tau, pd=None, heights=None,
 
 
 _SOURCE_HEAD = """\
-// Fused full physics step (K1) for one scene, one world per thread.
+// Fused full physics step (K1) for one scene, FS_LANES lanes per world.
 // Generated by raisimlib_torch/ops/gpu_step.py (kernel_source) from the
-// scene's static data; the frame (thread -> world, launch) is
+// scene's static data; the frame (lanes -> world, launch) is
 // csrc/fused_step.cuh. {summary}
 #include <cuda_runtime.h>
 #include <math.h>
+
+#define FS_NQ {nq}
+#define FS_NV {nv}
+#define FS_USE_PD {use_pd}
+#define FS_HAS_HM {has_hm}
+#define FS_SMEM_WORLD {smem_world}
+#ifndef FS_MIN_BLOCKS
+#define FS_MIN_BLOCKS {min_blocks}
+#endif
+#ifndef FS_LANES
+#define FS_LANES {lanes}
+#endif
+// A lane region: lane l = fs_lane of the world runs the body for its own l.
+// The syncs, over the whole warp (a block is one warp, and all its worlds
+// pass the same regions in the same order), order the region's shared-memory
+// writes after every lane's earlier reads and before its later ones.
+#ifndef FS_LANES_BEGIN
+#define FS_LANES_BEGIN __syncwarp(); {{ const int l = fs_lane;
+#define FS_LANES_END }} __syncwarp();
+#endif
 
 #include "cone_solve.cuh"
 
@@ -1656,20 +1773,21 @@ _SOURCE_HEAD = """\
 // ones a scene does not use
 #pragma nv_diag_suppress 177
 
-#define FS_NQ {nq}
-#define FS_NV {nv}
-#define FS_USE_PD {use_pd}
-#define FS_HAS_HM {has_hm}
-
 namespace {{
 
+// One world's step, run alike by each of its lanes; fs_smem is the world's
+// slice of shared memory (FS_SMEM_WORLD floats), qo and uo are null in the
+// lanes that do not store. fs_smem is not __restrict__: the other lanes
+// write through it too, and a restricted pointer would let the compiler move
+// its loads and stores across the lane regions' syncs.
 __device__ __forceinline__ void fs_body(const float* __restrict__ q,
                                         const float* __restrict__ u,
                                         const float* __restrict__ tau,
                                         const float* __restrict__ pd,
                                         const float* __restrict__ hts,
                                         float* __restrict__ qo,
-                                        float* __restrict__ uo) {{
+                                        float* __restrict__ uo,
+                                        float* fs_smem, const int fs_lane) {{
 """
 
 _SOURCE_TAIL = """\
@@ -1681,14 +1799,64 @@ _SOURCE_TAIL = """\
 """
 
 
+def _smem_layout(sd: _StaticData) -> dict:
+  """Offsets (floats) of one world's shared arrays, in order: jt, the W rows
+  and the v_free column ((nw + 1) x nv, nw = 3 ncone + nlim); jr, the
+  distinct runtime values of J (at most its nonzeros: each contact row moves
+  the dofs of its bodies' ancestors, each limit row one dof; `jr_size`);
+  gii, the cones' hoisted 3x3 blocks (6 ncone); z (nv); E, the cone solve's
+  energies (n_grid, and the 5 of a refinement); trig, the sines and cosines
+  of its grid (2 n_grid); and their total."""
+  nv, nw = sd.nv, 3 * len(sd.slots) + len(sd.limits)
+  jr = len(sd.limits) + sum(
+      3 * len(set(sd.anc_dofs[s.body_a] if s.body_a >= 0 else ())
+              | set(sd.anc_dofs[s.body_b] if s.body_b >= 0 else ())) for s in sd.slots)
+  sizes = (("jt", (nw + 1) * nv), ("jr", jr), ("gii", 6 * len(sd.slots)), ("z", nv),
+           ("E", max(sd.n_grid, 5)), ("trig", 2 * sd.n_grid))
+  out, off = {"jr_size": jr}, 0
+  for name, n in sizes:
+    out[name], off = off, off + n
+  out["total"] = off
+  return out
+
+
+def smem_bytes(sd: _StaticData, lanes: int = LANES) -> int:
+  """Bytes of shared memory one 32-thread block of the kernel holds, the
+  arrays of its 32 // lanes worlds. Raises FusedStepUnsupported above the
+  227 KB an H100 gives one block."""
+  n = 4 * (BLOCK // lanes) * _smem_layout(sd)["total"]
+  if n > SMEM_BLOCK_LIMIT:
+    raise FusedStepUnsupported(
+        f"the fused step's block would hold {n} bytes of shared memory ({BLOCK // lanes} "
+        f"worlds of nv = {sd.nv} with {len(sd.slots)} contact slots and {len(sd.limits)} "
+        f"limit rows), over the {SMEM_BLOCK_LIMIT} a block can hold")
+  return n
+
+
+def min_blocks(sd: _StaticData, lanes: int = LANES) -> int:
+  """__launch_bounds__' minimum of blocks per SM for the scene's kernel
+  (FS_MIN_BLOCKS): 16, which caps a thread at 128 registers, where an SM can
+  hold 16 blocks' shared arrays; else 1 (up to 255 registers). A warp's
+  lanes wait on one world's serial chain, so a large batch goes as fast as
+  the warps an SM holds: where 16 blocks fit (the sphere-box stack), the cap
+  doubles them for a few hundred bytes of spills; where shared memory stops
+  at 10 blocks (ANYmal), it would gain 2 warps for several KB of spills."""
+  return 16 if 16 * (smem_bytes(sd, lanes) + 1024) <= SM_SMEM else 1
+
+
 def kernel_source(sd: _StaticData):
   """The CUDA source of the fused step for `sd`, its operation tally per
   world and its height loads per world. Deterministic: the same static data
-  gives the same text."""
-  K = _CudaOps(sd.hm.ny if sd.hm is not None else 0)
+  gives the same text. Raises FusedStepUnsupported where a block cannot
+  hold its worlds' shared arrays (`smem_bytes`)."""
+  smem_bytes(sd)
+  layout = _smem_layout(sd)
+  K = _CudaOps(sd.hm.ny if sd.hm is not None else 0, layout)
   dth = 2.0 * math.pi / sd.n_grid
   K.emit(f"const rsl::ConeConsts cc = {{{sd.n_grid}, {_lit(dth)}, {_lit(0.5 * dth)}, "
          f"{_lit(0.125 * dth)}, {_lit(dth / 16.0)}}};")
+  if sd.slots:
+    K.emit(f"rsl::cone_grid_trig(cc, fs_smem + {layout['trig']}, fs_lane);")
 
   def loads(name, n):
     vals = []
@@ -1700,17 +1868,20 @@ def kernel_source(sd: _StaticData):
   q, u, tau = loads("q", sd.nq), loads("u", sd.nv), loads("tau", sd.nv)
   pd = loads("pd", sd.nv) if sd.use_pd else None
   q_new, u_new = _emit_step(sd, K, q, u, tau, pd)
+  K.emit("if (qo != nullptr) {")
   for k, x in enumerate(q_new):
-    K.emit(f"qo[{k}] = {K.e(x)};")
+    K.emit(f"  qo[{k}] = {K.e(x)};")
   for k, x in enumerate(u_new):
-    K.emit(f"uo[{k}] = {K.e(x)};")
+    K.emit(f"  uo[{k}] = {K.e(x)};")
+  K.emit("}")
   kinds = sorted({s.kind for s in sd.slots})
   summary = (f"nb = {sd.nb}, nq = {sd.nq}, nv = {sd.nv}, {len(sd.slots)} contact "
              f"slots ({', '.join(kinds) or 'none'}), {len(sd.limits)} limit rows, "
              f"{sd.sweeps} sweeps: {K.ops} operations and {K.loads} height loads "
-             f"per world.")
+             f"per world, {4 * layout['total']} bytes of shared memory.")
   head = _SOURCE_HEAD.format(summary=summary, nq=sd.nq, nv=sd.nv,
-                             use_pd=int(sd.use_pd), has_hm=int(sd.hm is not None))
+                             use_pd=int(sd.use_pd), has_hm=int(sd.hm is not None),
+                             smem_world=layout["total"], lanes=LANES, min_blocks=min_blocks(sd))
   return head + "\n".join(K.lines) + "\n" + _SOURCE_TAIL, K.ops, K.loads
 
 
@@ -1730,6 +1901,7 @@ class FusedKernel:
   def __init__(self, sd: _StaticData):
     self.sd = sd
     self.source, self.ops_per_world, self.loads_per_world = kernel_source(sd)
+    self.smem_bytes = smem_bytes(sd)             # per 32-thread block
     self.name = _build.add_generated("fused_step", self.source, _SYMBOLS)
 
   def launch(self, q, u, tau, pd, heights=None):
@@ -1808,6 +1980,7 @@ class FusedStep:
   def __init__(self, scene, config, use_pd: bool):
     self.scene, self.config, self.use_pd = scene, config, use_pd
     self.sd = _analyze(scene, config, use_pd)
+    smem_bytes(self.sd)                   # a block must hold its worlds' shared arrays
     self._kernel = None
 
   @property

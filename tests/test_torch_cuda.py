@@ -1,7 +1,7 @@
 """Tests that need the card: the hand-written CUDA kernels (K2, and the fused
 step K1 on the plane, on a heightmap, with the sphere pairs and with loose
-cylinders, cones and meshes on a heightmap) against
-their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
+cylinders, cones and meshes on a heightmap, and at batches whose last warp
+is partly empty) against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
 is not needed,
 so on the GPU machine they run without the JAX test configuration:
 
@@ -195,3 +195,48 @@ def test_debris_fused_step_kernel_matches_plain_twin():
           assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99, name
           assert dq.max() <= 5e-4 and du.max() <= 5e-3, name
         s = step(s, tau, field_heights=hts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 383])
+def test_fused_step_tail_batches(B):
+  """K1 at batches whose last warp holds fewer worlds than it has room for
+  (a warp holds 32 // LANES worlds; a world past B computes on a clamped
+  index and stores nothing): against the twin at the tiers of the plane
+  case, bitwise equal to the same worlds launched in a batch of 1037, and
+  with no store past row B (spare output rows keep their NaN)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  import numpy as np
+
+  from raisimlib_torch import _build
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops.integrator import State
+
+  g = load_golden()
+  step = gpu_step.make_step_batch_fused(torch_anymal_scene(dtype=torch.float32,
+                                                           device="cuda"))
+  f32 = dict(dtype=torch.float32, device="cuda")
+  q, u = perturbed_states(g, 1037, seed=13)
+  pd = torch.tensor(np.tile(g["pd_targets"][0], (1037, 1)), **f32)
+  tau = torch.zeros_like(pd)
+  s = State(q=torch.tensor(q, **f32), u=torch.tensor(u, **f32), t=torch.zeros(1037, **f32))
+  with torch.inference_mode():
+    full = step(s, tau, pd)
+    sb = State(q=s.q[:B].contiguous(), u=s.u[:B].contiguous(), t=s.t[:B])
+    sk = step(sb, tau[:B], pd[:B])
+    qp, up = gpu_step._fused_plain(step.sd, sb.q, sb.u, tau[:B], pd[:B])
+    qo = torch.full((B + 8, 19), float("nan"), **f32)
+    uo = torch.full((B + 8, 18), float("nan"), **f32)
+    rc = _build.load(step.kernel.name).fused_step_launch(
+        sb.q.data_ptr(), sb.u.data_ptr(), tau.data_ptr(), pd.data_ptr(), None, 0,
+        qo.data_ptr(), uo.data_ptr(), B, torch.cuda.current_stream().cuda_stream)
+  torch.cuda.synchronize()
+  assert rc == 0
+  dq = (sk.q - qp).abs().amax(1).cpu().numpy()
+  du = (sk.u - up).abs().amax(1).cpu().numpy()
+  assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
+  assert dq.max() <= 5e-4 and du.max() <= 5e-3
+  assert torch.equal(sk.q, full.q[:B]) and torch.equal(sk.u, full.u[:B])
+  assert torch.equal(qo[:B], sk.q) and torch.equal(uo[:B], sk.u)
+  assert bool(torch.isnan(qo[B:]).all()) and bool(torch.isnan(uo[B:]).all())

@@ -346,7 +346,7 @@ def test_kernel_source_is_deterministic_float32(anymal_sd):
       [x for x, s in lits if s != "f"][:5]
   for fast in ("__sinf", "__cosf", "__expf", "__fdividef", "double"):
     assert fast not in body
-  assert "#pragma unroll 1" in body and "rsl::cone_solve(" in body
+  assert "#pragma unroll 1" in body and "rsl::cone_solve_lanes(" in body
 
 
 def test_kernel_tally_equals_twin(anymal_sd):

@@ -218,25 +218,36 @@ def anymal_factors(B, seed=0):
 _HOST_PRE = r"""
 #include <math.h>
 #include <stddef.h>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 #define __ldg(p) (*(p))
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+// the kernel's lane regions, run for lane 0, 1, ..., FS_LANES - 1 in turn
+#define FS_LANES_BEGIN for (int l = 0; l < FS_LANES; ++l) {
+#define FS_LANES_END }
 """
 _HOST_POST = r"""
 extern "C" void host_step(const float* q, const float* u, const float* tau, const float* pd,
                           const float* hts, long long hts_stride, float* qo, float* uo, int B) {
-  for (int b = 0; b < B; ++b)
+  std::vector<float> smem(FS_SMEM_WORLD);
+  for (int b = 0; b < B; ++b) {
+    for (float& x : smem) x = nanf("");   // a read before a write shows as NaN
     fs_body(q + (size_t)b * FS_NQ, u + (size_t)b * FS_NV, tau + (size_t)b * FS_NV,
             pd + (size_t)b * FS_NV, hts ? hts + (size_t)b * hts_stride : NULL,
-            qo + (size_t)b * FS_NQ, uo + (size_t)b * FS_NV);
+            qo + (size_t)b * FS_NQ, uo + (size_t)b * FS_NV, smem.data(), 0);
+  }
 }
 """
 
 
-def host_step(sd, tmp_path):
+def host_step(sd, tmp_path, lanes=None, opt="-O1"):
   """The generated body (`fs_body`, the kernel minus its CUDA frame) built
-  as host C++ without FMA contraction; skips without a host compiler."""
+  as host C++ without FMA contraction (at g++'s `opt` level; each level
+  rounds alike); skips without a host compiler. One thread runs each world,
+  its lane regions lane after lane, at the source's FS_LANES or at `lanes`;
+  the world's shared memory is a host array filled with NaN before each
+  world."""
   import ctypes
   import shutil
   import subprocess
@@ -249,9 +260,11 @@ def host_step(sd, tmp_path):
     pytest.skip("needs a host C++ compiler")
   src = gpu_step.kernel_source(sd)[0]
   src = src.replace("#include <cuda_runtime.h>", "").replace('#include "fused_step.cuh"', "")
-  cpp, lib = tmp_path / "fused_host.cpp", tmp_path / "fused_host.so"
-  cpp.write_text(_HOST_PRE + src + _HOST_POST)
-  r = subprocess.run([cxx, "-O1", "-ffp-contract=off", "-w", "-shared", "-fPIC",
+  tag = "" if lanes is None else f"_l{lanes}"
+  cpp, lib = tmp_path / f"fused_host{tag}.cpp", tmp_path / f"fused_host{tag}.so"
+  pre = _HOST_PRE if lanes is None else f"#define FS_LANES {int(lanes)}\n" + _HOST_PRE
+  cpp.write_text(pre + src + _HOST_POST)
+  r = subprocess.run([cxx, opt, "-ffp-contract=off", "-w", "-shared", "-fPIC",
                       "-I", _build.CSRC, "-o", str(lib), str(cpp)],
                      capture_output=True, text=True, timeout=300)
   assert r.returncode == 0, r.stderr[:3000]
