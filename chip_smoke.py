@@ -18,13 +18,21 @@ heightmaps, through their public entry points:
   K2 path (pipeline.step_batch, fused="never"):
   2. K2 against its plain twin on the card (float32): the ANYmal solver
      inputs at B = 4096, random problems with nc = 1, 4, 12, lin and
-     bilateral rows, and B = 1037 (not a multiple of the block);
+     bilateral rows, and B = 1037 (not a multiple of the block), and at the
+     one-thread kernel's caps (nc = 48, nv = 64, B = 257) and past them (nv =
+     100: one world a block, a partial warp);
+     then the tails (TAIL_BATCHES: the last block partly empty) against the
+     twin and bitwise against the same worlds of the ANYmal batch, and that
+     batch launched twice, bitwise;
   3. rollouts: Scene.step_batch, B = 16384 worlds x H = 50 steps;
   4. MPPI: mppi_step_batch over make_contact_dyn_batch(fused="never"),
      16 envs x 128 samples, H = 50, 4 substeps, 2 updates;
   5. the f32 replay of tests/goldens/anymal_balance.npz through
      Scene.step_batch, held to the batched path's gate (utils/parity.py);
-  6. K2 times at the main path's shapes;
+  6. K2 times at the main path's shapes, B = 16384 (the rollouts), 2048
+     (the MPPI batch) and 384, alone and through the wrapper, each beside
+     its bound and the plain twin's time, with ptxas's figures and the
+     block's shared memory;
   K1 path (the fused full step, ops/gpu_step.make_step_batch_fused, 8 lanes
   of a warp per world):
   7. K1 against its plain twin on the card, B = 4096, from perturbed standing
@@ -143,10 +151,10 @@ def standing_states(torch, scene, B, seed, noise=0.02):
   return scene.init_state(q=torch.tensor(q, **f32)), torch.tensor(pd, **f32), q0
 
 
-def random_problem(torch, B, nc, seed, kinds=()):
+def random_problem(torch, B, nc, seed, kinds=(), nv=None):
   g = torch.Generator(device="cuda").manual_seed(seed)
   f32 = dict(dtype=torch.float32, device="cuda", generator=g)
-  nv = 3 * nc + 4
+  nv = 3 * nc + 4 if nv is None else nv
   Jr = torch.randn(B, nc, 3, nv, **f32)
   A = torch.randn(B, nv, nv, **f32)
   M = A @ A.transpose(-1, -2) + 3.0 * torch.eye(nv, device="cuda")
@@ -169,7 +177,8 @@ def check_kernel(torch, args, kinds, label):
   """K2 vs `_mf_plain` on the same inputs, with the two-tier check of
   tests/test_pallas_contact.py: >= 99% of lam entries within 1e-4 of the
   impulse scale, all within 3e-2, and the kernel's objective never worse by
-  more than 2e-3 relative. Returns the max abs error over lam and u."""
+  more than 2e-3 relative; and u within 3e-2 of its scale (max |u| + 1).
+  Returns the max abs error over lam and u, and the kernel's outputs."""
   from raisimlib_torch.ops import contact as ct
   from raisimlib_torch.ops import gpu_contact as gc
 
@@ -196,11 +205,40 @@ def check_kernel(torch, args, kinds, label):
 
   Ek, Ep = energy(lk), energy(lp)
   worse = float(((Ek - Ep) / (Ep.abs() + 1.0)).max())
-  err = max(float((lk - lp).abs().max()), float((uk - up).abs().max()))
+  u_err = float((uk - up).abs().max())
+  u_rel = u_err / (float(up.abs().max()) + 1.0)
+  err = max(float((lk - lp).abs().max()), u_err)
   note(f"  {label}: B={B} nc={nc} within 1e-4: {frac:.4f}, max rel {relmax:.2e}, "
-       f"max abs err {err:.2e}, objective worse by at most {worse:.2e}")
-  if frac < 0.99 or relmax >= 3e-2 or worse > 2e-3:
+       f"max abs err {err:.2e}, u max rel {u_rel:.2e}, objective worse by at most {worse:.2e}")
+  if frac < 0.99 or relmax >= 3e-2 or worse > 2e-3 or u_rel >= 3e-2:
     fail(f"{label}: kernel disagrees with its plain twin")
+  return err, (uk, lk)
+
+
+def check_k2_tails(torch, args, kinds, label):
+  """K2 on the first TAIL_BATCHES worlds of args: each tail within
+  check_kernel's tiers of the twin and bitwise equal to the same worlds of
+  the whole batch; and the whole batch launched twice, bitwise equal (the
+  lanes of a world share its memory: a race would show as a difference).
+  Returns the max abs error against the twin."""
+  from raisimlib_torch.ops import contact as ct
+  from raisimlib_torch.ops import gpu_contact as gc
+
+  cfg = ct.SolverConfig(row_kinds=kinds)
+  full = gc.solve_dynamics_batch(*args, cfg)
+  again = gc.solve_dynamics_batch(*args, cfg)
+  torch.cuda.synchronize()
+  if not all(torch.equal(a, b) for a, b in zip(full, again)):
+    fail(f"{label}: two K2 launches on the same inputs differ")
+  err = 0.0
+  for b in TAIL_BATCHES:
+    e, out = check_kernel(torch, [x[:b] for x in args], kinds, f"{label}, B={b}")
+    if not all(torch.equal(x, y[:b]) for x, y in zip(out, full)):
+      fail(f"{label}, B={b}: the tail's worlds differ from the same worlds of "
+           f"B={args[0].shape[0]}")
+    err = max(err, e)
+  note(f"  {label}: B={args[0].shape[0]} twice, bitwise equal; B={TAIL_BATCHES} bitwise equal "
+       f"to their worlds in it")
   return err
 
 
@@ -1147,12 +1185,26 @@ def main():
   s, pd, q0 = standing_states(torch, scene, 4096, seed=1)
   with torch.inference_mode():
     args, cfg = pipeline.solver_inputs(scene, s, torch.zeros_like(pd), pd)
-    anymal_err = check_kernel(torch, list(args), cfg.row_kinds, "ANYmal factors")
+    anymal_err = check_kernel(torch, list(args), cfg.row_kinds, "ANYmal factors")[0]
     for nc in (1, 4, 12):
       check_kernel(torch, random_problem(torch, 1037, nc, seed=nc), (), f"random nc={nc}")
     kinds = ("cone", "lin", "cone", "bilateral")
     check_kernel(torch, random_problem(torch, 1037, 4, seed=7, kinds=kinds), kinds,
                  "lin + bilateral rows")
+    for nv, seed in ((64, 9), (100, 10)):
+      wpb = gc.block_shape(48, nv, ("cone",) * 48, 32)[0]
+      check_kernel(torch, random_problem(torch, 257, 48, seed=seed, nv=nv), (),
+                   f"nc=48 nv={nv}, {wpb} world(s) a block of {wpb * _build.MF_LANES} threads")
+    anymal_err = max(anymal_err, check_k2_tails(torch, list(args), cfg.row_kinds,
+                                                "ANYmal factors"))
+    n0 = gc.solve_dynamics_batch.launches
+    try:
+      gc.solve_dynamics_batch(*random_problem(torch, 2, 100, seed=11, nv=128), ct.SolverConfig())
+      fail("K2 launched nc=100 nv=128, whose world does not fit a block")
+    except ValueError as e:
+      if gc.solve_dynamics_batch.launches != n0:
+        fail("K2 counted a launch it refused")
+      note(f"  nc=100 nv=128 refused: {e}")
 
   # ---- 3. K2 rollouts ------------------------------------------------------
   B, H = 16384, 50
@@ -1177,37 +1229,48 @@ def main():
   golden_replay(torch, lambda sc: lambda st, p: sc.step_batch(st, pd_target=p), "K2")
 
   # ---- 6. K2 times at the main path's shapes ----------------------------------
-  note(f"phase 6: K2 times at B={B}, nc={len(kinds_any)}, nv={scene.model.nv}")
+  note(f"phase 6: K2 times at B={B} (the rollouts), 2048 (the MPPI batch) and 384, "
+       f"nc={len(kinds_any)}, nv={scene.model.nv}")
+  k2_times = {}
   with torch.inference_mode():
-    args, cfg = pipeline.solver_inputs(scene, s0, torch.zeros_like(pd), pd)
-    ins, kinds_t = gc.kernel_inputs(*args, cfg)
-    ms = time_cuda(torch, lambda: gc.solve_dynamics_batch(*args, cfg), 20)
-    kernel_ms = time_cuda(torch, lambda: gc.launch_kernel(ins, kinds_t, cfg), 20)
-    plain_ms = time_cuda(torch, lambda: gc._mf_plain(*args, cfg), 3)
+    for b, seed in ((B, 2), (2048, 6), (384, 8)):
+      sb, pdb = (s0, pd) if b == B else standing_states(torch, scene, b, seed=seed)[:2]
+      args, cfg = pipeline.solver_inputs(scene, sb, torch.zeros_like(pdb), pdb)
+      ins, rows_t = gc.kernel_inputs(*args, cfg)
+      nbytes, nops = gc.mf_solve_cost(b, len(kinds_any), scene.model.nv, cfg.row_kinds,
+                                      cfg.sweeps, cfg.n_grid)
+      t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+      t_ops = nops / H100_F32_OPS_PER_S * 1e3
+      k2_times[b] = dict(
+          ms=time_cuda(torch, lambda: gc.solve_dynamics_batch(*args, cfg), 20),
+          kernel_only_ms=time_cuda(torch, lambda: gc.launch_kernel(ins, rows_t, cfg), 20),
+          plain_ms=time_cuda(torch, lambda: gc._mf_plain(*args, cfg), 3 if b == B else 2),
+          bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+      x = k2_times[b]
+      note(f"  B={b}: wrapper {x['ms']:.3f} ms (kernel alone {x['kernel_only_ms']:.3f} ms), "
+           f"plain twin {x['plain_ms']:.3f} ms; bound {x['bound_ms']:.4f} ms "
+           f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.3f} GFLOP -> "
+           f"{t_ops:.4f} ms)")
     step_ms = time_cuda(torch, lambda: scene.step_batch(s0, pd_target=pd), 5)
-  nbytes, nops = gc.mf_solve_cost(B, len(kinds_any), scene.model.nv, cfg.row_kinds,
-                                  ct.SolverConfig().sweeps, ct.SolverConfig().n_grid)
-  t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-  t_ops = nops / H100_F32_OPS_PER_S * 1e3
-  note(f"  wrapper {ms:.3f} ms (kernel alone {kernel_ms:.3f} ms), plain twin "
-       f"{plain_ms:.3f} ms, whole step {step_ms:.3f} ms; bound {max(t_bytes, t_ops):.4f} ms "
-       f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms)")
+  wpb, smem = gc.block_shape(len(kinds_any), scene.model.nv, cfg.row_kinds, cfg.n_grid)
+  k2_ptxas = dict(_build.ptxas_figures("mf_solve"), smem_block_bytes=smem,
+                  worlds_per_block=wpb, lanes=_build.MF_LANES)
+  note(f"  whole K2-path step {step_ms:.3f} ms at B={B}; K2 build: {k2_ptxas}")
   k2 = {
-      "name": "mf_solve (K2, cone_solve K3 inlined)",
+      "name": "mf_solve (K2, cone_solve_lanes K3 inlined)",
       "route": "cuda",
       "source": "raisimlib_torch/csrc/mf_solve.cu",
+      "body": "raisimlib_torch/csrc/mf_solve.cuh",
       "replaces": "raisimlib_tpu/ops/pallas_contact.py:164",
       "launches": launches_roll + launches_mppi,
       "launches_rollouts": launches_roll,
       "launches_mppi": launches_mppi,
       "max_abs_err": anymal_err,
-      "ms": ms,
-      "kernel_only_ms": kernel_ms,
-      "plain_ms": plain_ms,
-      "bound_ms": max(t_bytes, t_ops),
-      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+      **k2_times[B],
       "library_ms": None,
+      **{f"{k}_b{b}": v for b in k2_times if b != B for k, v in k2_times[b].items()},
       "step_ms": step_ms,
+      "ptxas": k2_ptxas,
   }
 
   # ---- 7. K1 vs its plain twin, and vs the K2 path ----------------------------

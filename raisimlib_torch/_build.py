@@ -26,18 +26,17 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# per-thread capacity of the matrix-free solve (local arrays in mf_solve.cu);
-# the wrapper raises above these
-MF_MAX_NC = 48
-MF_MAX_NV = 64
+# the matrix-free solve's build: MF_LANES lanes of a warp per world
+MF_LANES = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNELS = {
     "mf_solve": dict(
         source=os.path.join(CSRC, "mf_solve.cu"),
-        defines=(f"-DMF_MAX_NC={MF_MAX_NC}", f"-DMF_MAX_NV={MF_MAX_NV}"),
-        symbols={"mf_solve_launch": [_P] * 9 + [_I] * 5 + [_P]},
+        defines=(f"-DMF_LANES={MF_LANES}",),
+        symbols={"mf_solve_launch": [_P] * 9 + [_I] * 6 + [_P],
+                 "mf_solve_block": [_I] * 4 + [_P]},
     ),
 }
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

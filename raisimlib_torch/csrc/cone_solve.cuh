@@ -1,11 +1,12 @@
-// Exact per-contact Coulomb-cone impulse: `cone_solve`, one world per thread
-// (the matrix-free solve, mf_solve.cu), and `cone_solve_lanes`, the same
-// solve with its angular grid split over the lanes of one world (the fused
-// full-step kernel, whose generated head defines the lane regions).
+// Exact per-contact Coulomb-cone impulse, `cone_solve_lanes`: the solve with
+// its angular grid split over the FS_LANES lanes of one world. Both kernels
+// that solve contacts call it, each defining the lane regions first: the
+// fused full step (whose generated head defines them) and the matrix-free
+// solve (mf_solve.cu).
 //
 // Replaces the TPU device function raisimlib_tpu/ops/pallas_contact.py
 // `_cone_solve_vec` + `_stick_vec`, which the TPU kernels inline into their
-// Gauss-Seidel loops. Both are __device__ functions, inlined by their
+// Gauss-Seidel loops. All are __device__ functions, inlined by their
 // kernels.
 //
 // Cases, as in ops/contact.py `cone_solve` (RA-L 2018 semantics):
@@ -93,76 +94,6 @@ __device__ __forceinline__ float cone_curve_E(const float* g, float c0, float c1
   return cone_curve(g, c0, c1, c2, mu, theta, &s, &d0, &d1);
 }
 
-__device__ __forceinline__ void cone_solve(const float* g, float c0, float c1,
-                                           float c2, float mu,
-                                           const ConeConsts& cc, float* out) {
-  float ls[3];
-  stick_solve(g, c0, c1, c2, ls);
-  const float t_norm = sqrtf(ls[0] * ls[0] + ls[1] * ls[1] + 1e-20f);
-  const bool stick_ok = ((ls[2] > 0.0f) && (t_norm <= mu * ls[2])) || (mu > 1e6f);
-  const bool open_ok = c2 >= 0.0f;
-
-  // coarse grid: first index attaining the minimum (a NaN poisons the min,
-  // and then no index matches: the TPU kernel's one-hot selects nothing)
-  bool grid_nan = false;
-  int kmin = 0;
-  float Emin = kConeBig;
-  for (int k = 0; k < cc.n_grid; ++k) {
-    const float E = cone_curve_E(g, c0, c1, c2, mu, (float)k * cc.dtheta);
-    if (E != E) {
-      grid_nan = true;
-    } else if (k == 0 || E < Emin) {
-      Emin = E;
-      kmin = k;
-    }
-  }
-  const bool any_feas = !grid_nan && (Emin < kConeBig);
-  float theta_b = grid_nan ? 0.0f : (float)kmin * cc.dtheta;
-
-  // two shrinking 5-point refinements, circular neighbours
-  const float offs[5] = {-1.0f, -0.5f, 0.0f, 0.5f, 1.0f};
-  float E0 = 0.0f, Em = 0.0f, Ep = 0.0f;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float span = r == 0 ? cc.span1 : cc.span2;
-    float th5[5], E5[5];
-    bool nan5 = false;
-    int k5 = 0;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      th5[j] = theta_b + offs[j] * span;
-      E5[j] = cone_curve_E(g, c0, c1, c2, mu, th5[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      if (E5[j] != E5[j]) nan5 = true;
-      else if (E5[j] < E5[k5] || E5[k5] != E5[k5]) k5 = j;
-    }
-    if (nan5) {
-      theta_b = E0 = Em = Ep = 0.0f;
-    } else {
-      theta_b = th5[k5];
-      E0 = E5[k5];
-      Em = E5[(k5 + 4) % 5];
-      Ep = E5[(k5 + 1) % 5];
-    }
-  }
-  const float denom = Em - 2.0f * E0 + Ep;
-  float off = fabsf(denom) > 1e-30f ? 0.5f * (Em - Ep) / (denom + 1e-30f) : 0.0f;
-  off = fminf(fmaxf(off, -1.0f), 1.0f);
-  theta_b = theta_b + off * cc.h;
-
-  float s_b, d0_b, d1_b;
-  cone_curve(g, c0, c1, c2, mu, theta_b, &s_b, &d0_b, &d1_b);
-  const float s_safe = any_feas ? s_b : -c2 / (g[5] + 1e-20f);
-  const float l0 = any_feas ? s_safe * d0_b : 0.0f;
-  const float l1 = any_feas ? s_safe * d1_b : 0.0f;
-
-  out[0] = stick_ok ? ls[0] : (open_ok ? 0.0f : l0);
-  out[1] = stick_ok ? ls[1] : (open_ok ? 0.0f : l1);
-  out[2] = stick_ok ? ls[2] : (open_ok ? 0.0f : s_safe);
-}
-
 #ifdef FS_LANES_BEGIN
 // The grid's sines and cosines, trig[2 k] and trig[2 k + 1] = sincosf(k
 // dtheta), written in a lane region: they are the same for every solve.
@@ -174,16 +105,16 @@ __device__ __forceinline__ void cone_grid_trig(const ConeConsts& cc, float* trig
   FS_LANES_END
 }
 
-// cone_solve with the angular search split over the FS_LANES lanes of one
-// world (the fused step's lane regions, defined by its generated head): lane
-// l evaluates the grid points k = l (mod FS_LANES) into the world's shared E
-// (n_grid floats), from the sines and cosines of cone_grid_trig, then, in
-// each refinement, the points j = l (mod FS_LANES) of the 5 into E[0..4].
-// Everything else, the first-match argmins over E included, every lane runs
-// alike and gets the same values. Each value is the expression cone_solve
-// computes (sincosf of the same angle; a refinement point's offset, 0.5 (j -
-// 2) times the span, is exact, as cone_solve's table entries are), so the
-// impulse is cone_solve's for any FS_LANES.
+// The cone solve with the angular search split over the FS_LANES lanes of
+// one world (the includer's lane regions): lane l evaluates the grid points
+// k = l (mod FS_LANES) into the world's shared E (n_grid floats), from the
+// sines and cosines of cone_grid_trig, then, in each refinement, the points
+// j = l (mod FS_LANES) of the 5 into E[0..4]. Everything else, the
+// first-match argmins over E included, every lane runs alike and gets the
+// same values. Each value is the expression of the one-thread solve it
+// replaced and of the plain twin (ops/gpu_contact.py `_cone_solve_grid`):
+// sincosf of the same angle, and a refinement point's offset, 0.5 (j - 2)
+// times the span, is exact. So the impulse is the same for any FS_LANES.
 __device__ __forceinline__ void cone_solve_lanes(const float* gs, float c0, float c1,
                                                  float c2, float mu, const ConeConsts& cc,
                                                  const float* trig, float* E,

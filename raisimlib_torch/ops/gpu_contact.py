@@ -9,8 +9,11 @@ rows of J M^-1, vf (B,nv), bias (B,nc,3), mu / active (B,nc):
 
   * `solve_dynamics_batch` — the public entry. On a CUDA tensor it launches
     the hand-written kernel csrc/mf_solve.cu (which replaces the TPU kernel
-    `_mf_kernel`; the cone solve csrc/cone_solve.cuh replaces
-    `_cone_solve_vec`); on a CPU tensor it runs `_mf_plain`. It is a
+    `_mf_kernel`: `_build.MF_LANES` lanes of a warp per world, the world's
+    rows staged in shared memory, with the lane-split cone solve of
+    csrc/cone_solve.cuh, which replaces `_cone_solve_vec`) on the
+    batch-first tensors as they are (`kernel_inputs`, `launch_kernel`,
+    `block_shape`); on a CPU tensor it runs `_mf_plain`. It is a
     torch.autograd.Function whose backward differentiates `_mf_pure`, the
     same split as the JAX package's custom VJP.
   * `_mf_plain` — the kernel's algorithm in plain PyTorch (hoisted Gii,
@@ -22,6 +25,7 @@ rows of J M^-1, vf (B,nv), bias (B,nc,3), mu / active (B,nc):
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -182,15 +186,41 @@ def _mf_plain(Jr, Wt, vf, bias, mu, active, config: ct.SolverConfig = ct.SolverC
 # ---------------------------------------------------------------------------
 
 
+def _used_rows(kinds: tuple) -> int:
+  """Solver rows the kernel stages: 3 per cone or bilateral row, 1 per lin."""
+  return sum(1 if k == "lin" else 3 for k in kinds)
+
+
+def block_shape(nc: int, nv: int, kinds: tuple, n_grid: int):
+  """(worlds per block, shared bytes per block) that csrc/mf_solve.cu
+  launches at these shapes (its `mf_block`): a one-warp block of 32 //
+  `_build.MF_LANES` worlds, or as many as fit 227 KB of shared memory (a
+  partial warp); worlds 0 where one world does not fit. Loads the kernel."""
+  nbytes = ctypes.c_int(0)
+  wpb = _build.load("mf_solve").mf_solve_block(nc, nv, _used_rows(kinds), n_grid,
+                                              ctypes.byref(nbytes))
+  return wpb, nbytes.value
+
+
 @functools.lru_cache(maxsize=None)
-def _kinds_tensor(kinds: tuple, device: str) -> torch.Tensor:
-  return torch.tensor([_KIND_CODES[k] for k in kinds], dtype=torch.int32, device=device)
+def _row_table(kinds: tuple, device: str) -> torch.Tensor:
+  """The kernel's int32 row table (2 nc + nrow entries): the kinds' codes;
+  each solver row's first slot among the staged rows (3 per cone or
+  bilateral row, 1 per lin row: its third); and each staged row's row in
+  the (nc, 3, nv) inputs."""
+  slots, src = [], []
+  for i, k in enumerate(kinds):
+    slots.append(len(src))
+    src.extend([3 * i + 2] if k == "lin" else [3 * i, 3 * i + 1, 3 * i + 2])
+  return torch.tensor([_KIND_CODES[k] for k in kinds] + slots + src, dtype=torch.int32,
+                      device=device)
 
 
 def kernel_inputs(Jr, Wt, vf, bias, mu, active, config: ct.SolverConfig):
-  """Check the public inputs and lay them out batch-last for the kernel:
-  Jr, Wt (3nc, nv, B); vf (nv, B); bias (3nc, B); mu, active (nc, B); and
-  the row kinds as an int32 tensor on the same device."""
+  """Check the public (batch-first) inputs and hand them to the kernel as
+  they are: Jr, Wt (B, nc, 3, nv); vf (B, nv); bias (B, nc, 3); mu, active
+  (B, nc), active as float32 (`.contiguous()` copies only a view that is
+  not). Returns them with the row table (`_row_table`) on the same device."""
   B, nc, _, nv = Jr.shape
   dev = Jr.device
   shapes = {"Jr": (Jr, (B, nc, 3, nv)), "Wt": (Wt, (B, nc, 3, nv)),
@@ -203,43 +233,33 @@ def kernel_inputs(Jr, Wt, vf, bias, mu, active, config: ct.SolverConfig):
       raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if x.dtype != torch.float32 and name != "active":
       raise TypeError(f"the CUDA solve takes float32 only; {name} is {x.dtype}")
-  if nc > _build.MF_MAX_NC or nv > _build.MF_MAX_NV:
-    raise ValueError(f"nc={nc}, nv={nv} exceed the kernel's per-thread capacity "
-                     f"(nc <= {_build.MF_MAX_NC}, nv <= {_build.MF_MAX_NV})")
-
-  def rows_last(x):                                 # (B, nc, 3, nv) -> (3nc, nv, B)
-    return x.reshape(B, 3 * nc, nv).permute(1, 2, 0).contiguous()
-
-  ins = [rows_last(Jr), rows_last(Wt), vf.t().contiguous(),
-         bias.reshape(B, 3 * nc).t().contiguous(), mu.t().contiguous(),
-         active.to(torch.float32).t().contiguous()]
-  return ins, _kinds_tensor(_row_kinds(config, nc), str(dev))
+  ins = [x.contiguous() for x in (Jr, Wt, vf, bias, mu)] + [
+      active.to(torch.float32).contiguous()]
+  return ins, _row_table(_row_kinds(config, nc), str(dev))
 
 
-def launch_kernel(ins, kinds, config: ct.SolverConfig):
-  """Launch csrc/mf_solve.cu on batch-last inputs from `kernel_inputs`;
-  returns (u (nv, B), lam (3nc, B)), allocated here."""
-  nc3, nv, B = ins[0].shape
+def launch_kernel(ins, rows, config: ct.SolverConfig):
+  """Launch csrc/mf_solve.cu on the inputs from `kernel_inputs`; returns (u
+  (B, nv), lam (B, nc, 3)), allocated here. Raises ValueError where one
+  world's shared arrays do not fit a block."""
+  B, nc, _, nv = ins[0].shape
   dev = ins[0].device
   if not all(x.is_contiguous() and x.is_cuda for x in ins):
     raise ValueError("kernel inputs must be contiguous CUDA tensors")
-  u = torch.empty((nv, B), dtype=torch.float32, device=dev)
-  lam = torch.empty((nc3, B), dtype=torch.float32, device=dev)
-  lib = _build.load("mf_solve")
-  rc = lib.mf_solve_launch(*(x.data_ptr() for x in ins), kinds.data_ptr(),
-                           u.data_ptr(), lam.data_ptr(), B, nc3 // 3, nv,
-                           config.sweeps, config.n_grid,
-                           torch.cuda.current_stream(dev).cuda_stream)
+  kinds = _row_kinds(config, nc)
+  u = torch.empty((B, nv), dtype=torch.float32, device=dev)
+  lam = torch.empty((B, nc, 3), dtype=torch.float32, device=dev)
+  rc = _build.load("mf_solve").mf_solve_launch(
+      *(x.data_ptr() for x in ins), rows.data_ptr(), u.data_ptr(), lam.data_ptr(), B, nc, nv,
+      _used_rows(kinds), config.sweeps, config.n_grid,
+      torch.cuda.current_stream(dev).cuda_stream)
   if rc != 0:
+    if block_shape(nc, nv, kinds, config.n_grid)[0] == 0:
+      raise ValueError(f"nc={nc}, nv={nv}: one world of the solve does not fit a block's "
+                       f"227 KB of shared memory")
     raise RuntimeError(f"mf_solve kernel launch failed: cudaError {rc}")
   solve_dynamics_batch.launches += 1
   return u, lam
-
-
-def _launch(Jr, Wt, vf, bias, mu, active, config: ct.SolverConfig):
-  B, nc = Jr.shape[:2]
-  u, lam = launch_kernel(*kernel_inputs(Jr, Wt, vf, bias, mu, active, config), config)
-  return u.t(), lam.reshape(nc, 3, B).permute(2, 0, 1)
 
 
 class _MFSolve(torch.autograd.Function):
@@ -249,7 +269,7 @@ class _MFSolve(torch.autograd.Function):
     ctx.config = config
     ctx.save_for_backward(Jr, Wt, vf, bias, mu, active)
     if Jr.is_cuda:
-      return _launch(Jr, Wt, vf, bias, mu, active, config)
+      return launch_kernel(*kernel_inputs(Jr, Wt, vf, bias, mu, active, config), config)
     return _mf_plain(Jr, Wt, vf, bias, mu, active, config)
 
   @staticmethod
@@ -268,8 +288,9 @@ def solve_dynamics_batch(Jr, Wt, vf, bias, mu, active,
   """Batched contact-dynamics solve -> (u_new (B, nv), lam (B, nc, 3)).
 
   CUDA tensors (float32) launch csrc/mf_solve.cu and count one launch in
-  `solve_dynamics_batch.launches`; CPU tensors run `_mf_plain`. Gradients go
-  through `_mf_pure`."""
+  `solve_dynamics_batch.launches` (or raise ValueError, where one world's
+  shared arrays do not fit a block: `block_shape`); CPU tensors run
+  `_mf_plain`. Gradients go through `_mf_pure`."""
   return _MFSolve.apply(Jr, Wt, vf, bias, mu, active, config)
 
 

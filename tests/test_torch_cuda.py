@@ -1,14 +1,17 @@
-"""Tests that need the card: the hand-written CUDA kernels (K2, and the fused
-step K1 on the plane, on a heightmap, with the sphere pairs and with loose
-cylinders, cones and meshes on a heightmap, and at batches whose last warp
-is partly empty) against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
+"""Tests that need the card: the hand-written CUDA kernels (K2, also at
+batches whose last block is partly empty and where one world does not fit a
+block, and the fused step K1 on the
+plane, on a heightmap, with the sphere pairs and with loose cylinders, cones
+and meshes on a heightmap, and at batches whose last warp is partly empty)
+against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
 is not needed,
 so on the GPU machine they run without the JAX test configuration:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: the two-tier check of tests/test_pallas_contact.py (>= 99% of lam
-entries within 1e-4 of the impulse scale, all within 3e-2): the kernel and its
+entries within 1e-4 of the impulse scale, all within 3e-2; for K2 also u
+within 3e-2 of its scale, as chip_smoke.py): the kernel and its
 twin run the same algorithm in float32 with different operation orders (FMA
 contraction, reduction order), and a near-tie of the angular grid's argmin
 can pick a neighbouring angle."""
@@ -39,6 +42,7 @@ def test_mf_solve_kernel_matches_plain_twin():
   scale = float(lp.abs().max()) + 1.0
   rel = ((lk - lp).abs() / scale).cpu().numpy()
   assert (rel < 1e-4).mean() >= 0.99 and rel.max() < 3e-2
+  assert float((uk - up).abs().max()) < 3e-2 * (float(up.abs().max()) + 1.0)
 
 
 @pytest.mark.cuda
@@ -240,3 +244,75 @@ def test_fused_step_tail_batches(B):
   assert torch.equal(sk.q, full.q[:B]) and torch.equal(sk.u, full.u[:B])
   assert torch.equal(qo[:B], sk.q) and torch.equal(uo[:B], sk.u)
   assert bool(torch.isnan(qo[B:]).all()) and bool(torch.isnan(uo[B:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 383])
+def test_mf_solve_tail_batches(B):
+  """K2 at batches whose last block holds fewer worlds than it has room for
+  (a block holds 32 // MF_LANES worlds; a world past B computes on world B -
+  1 and stores nothing): the tail within the two tiers of `_mf_plain`,
+  bitwise equal to the same worlds of a batch of 4096, which launched twice
+  gives the same bits (a race between a world's lanes would show), and no
+  store past row B (spare output rows keep their NaN)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from raisimlib_torch import _build
+  from raisimlib_torch.ops import contact as tct
+  from raisimlib_torch.ops import gpu_contact as tgc
+
+  args, kinds = anymal_factors(4096, seed=14)
+  xs = [torch.tensor(a, device="cuda") for a in args]
+  cfg = tct.SolverConfig(row_kinds=kinds)
+  with torch.inference_mode():
+    u_full, l_full = tgc.solve_dynamics_batch(*xs, cfg)
+    u_again, l_again = tgc.solve_dynamics_batch(*xs, cfg)
+    tail = [x[:B] for x in xs]
+    uk, lk = tgc.solve_dynamics_batch(*tail, cfg)
+    up, lp = tgc._mf_plain(*tail, cfg)
+    ins, rows = tgc.kernel_inputs(*tail, cfg)
+    nc, nv = lk.shape[1], uk.shape[1]
+    uo = torch.full((B + 8, nv), float("nan"), device="cuda")
+    lo = torch.full((B + 8, nc, 3), float("nan"), device="cuda")
+    rc = _build.load("mf_solve").mf_solve_launch(
+        *(x.data_ptr() for x in ins), rows.data_ptr(), uo.data_ptr(), lo.data_ptr(), B, nc, nv,
+        tgc._used_rows(kinds), cfg.sweeps, cfg.n_grid, torch.cuda.current_stream().cuda_stream)
+  torch.cuda.synchronize()
+  assert rc == 0
+  assert torch.equal(u_full, u_again) and torch.equal(l_full, l_again)
+  scale = float(lp.abs().max()) + 1.0
+  rel = ((lk - lp).abs() / scale).cpu().numpy()
+  assert (rel < 1e-4).mean() >= 0.99 and rel.max() < 3e-2
+  assert float((uk - up).abs().max()) < 3e-2 * (float(up.abs().max()) + 1.0)
+  assert torch.equal(uk, u_full[:B]) and torch.equal(lk, l_full[:B])
+  assert torch.equal(uo[:B], uk) and torch.equal(lo[:B], lk)
+  assert bool(torch.isnan(uo[B:]).all()) and bool(torch.isnan(lo[B:]).all())
+
+
+@pytest.mark.cuda
+def test_mf_solve_refuses_a_world_over_a_block():
+  """K2 raises, and launches nothing, where one world's shared arrays pass a
+  block's 227 KB (nc 100, nv 128); it runs nc 48, nv 100 as one world a
+  block."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from raisimlib_torch.ops import contact as tct
+  from raisimlib_torch.ops import gpu_contact as tgc
+
+  def problem(nc, nv):
+    g = torch.Generator(device="cuda").manual_seed(nc)
+    f32 = dict(device="cuda", generator=g)
+    Jr = torch.randn(2, nc, 3, nv, **f32)
+    return [Jr, 0.01 * Jr, torch.randn(2, nv, **f32), torch.zeros(2, nc, 3, device="cuda"),
+            torch.full((2, nc), 0.8, device="cuda"), torch.ones(2, nc, device="cuda")]
+
+  cfg = tct.SolverConfig()
+  assert tgc.block_shape(100, 128, ("cone",) * 100, cfg.n_grid)[0] == 0
+  n0 = tgc.solve_dynamics_batch.launches
+  with pytest.raises(ValueError, match="shared memory"):
+    tgc.solve_dynamics_batch(*problem(100, 128), cfg)
+  assert tgc.solve_dynamics_batch.launches == n0
+  assert tgc.block_shape(48, 100, ("cone",) * 48, cfg.n_grid)[0] == 1
+  u, lam = tgc.solve_dynamics_batch(*problem(48, 100), cfg)
+  torch.cuda.synchronize()
+  assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(lam).all())

@@ -272,3 +272,68 @@ def host_step(sd, tmp_path, lanes=None, opt="-O1"):
   host.host_step.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                              + [ctypes.c_void_p] * 2 + [ctypes.c_int])
   return host.host_step
+
+
+_MF_HOST = r"""
+#include <math.h>
+#include <stddef.h>
+#include <vector>
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __ldg(p) (*(p))
+// the kernel's lane regions, run for lane 0, 1, ..., FS_LANES - 1 in turn
+#define FS_LANES_BEGIN for (int l = 0; l < FS_LANES; ++l) {
+#define FS_LANES_END }
+#include "mf_solve.cuh"
+
+// the kernel's frame: blocks of wpb worlds (mf_block), one after another,
+// each block's shared memory a host array filled with NaN before the block
+extern "C" void host_mf(const float* Jr, const float* Wt, const float* vf, const float* bias,
+                        const float* mu, const float* act, const int* rows, float* u,
+                        float* lam, int B, int nc, int nv, int nrow, int sweeps, int n_grid) {
+  const rsl::ConeConsts cc = rsl::mf_cone_consts(n_grid);
+  int bytes = 0;
+  const int wpb = rsl::mf_block(nc, nv, nrow, n_grid, &bytes);
+  std::vector<float> smem((size_t)bytes / sizeof(float));
+  for (int blk = 0; blk < (B + wpb - 1) / wpb; ++blk) {
+    for (float& x : smem) x = nanf("");
+    for (int w = 0; w < wpb; ++w)
+      rsl::mf_slot(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow, sweeps, cc,
+                   smem.data(), blk, wpb, w, 0);
+  }
+}
+
+extern "C" int host_mf_block(int nc, int nv, int nrow, int n_grid, int* bytes) {
+  return rsl::mf_block(nc, nv, nrow, n_grid, bytes);
+}
+"""
+
+
+def host_mf(tmp_path, lanes, opt="-O1"):
+  """K2's body (csrc/mf_solve.cuh) and its frame built as host C++ without
+  FMA contraction, at FS_LANES = `lanes`; skips without a host compiler.
+  Returns the library: `host_mf(Jr, Wt, vf, bias, mu, act, rows, u, lam, B,
+  nc, nv, nrow, sweeps, n_grid)` on batch-first float32 arrays (one thread
+  runs each world, its lane regions lane after lane, in blocks of the
+  kernel's worlds per block), and `host_mf_block(nc, nv, nrow, n_grid,
+  &bytes)`, the kernel's worlds per block and shared bytes (`mf_block`)."""
+  import ctypes
+  import shutil
+  import subprocess
+
+  from raisimlib_torch import _build
+
+  cxx = shutil.which("g++")
+  if cxx is None:
+    pytest.skip("needs a host C++ compiler")
+  cpp, lib = tmp_path / f"mf_host_l{int(lanes)}.cpp", tmp_path / f"mf_host_l{int(lanes)}.so"
+  cpp.write_text(f"#define FS_LANES {int(lanes)}\n" + _MF_HOST)
+  r = subprocess.run([cxx, opt, "-ffp-contract=off", "-w", "-shared", "-fPIC",
+                      "-I", _build.CSRC, "-o", str(lib), str(cpp)],
+                     capture_output=True, text=True, timeout=300)
+  assert r.returncode == 0, r.stderr[:3000]
+  host = ctypes.CDLL(str(lib))
+  host.host_mf.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+  host.host_mf_block.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+  return host
