@@ -7,14 +7,15 @@ Run from the repository root on a machine with an H100 and the CUDA toolkit:
 It builds the hand-written kernels (one nvcc per source, in parallel), then
 drives the port's two main paths on the ANYmal balance configuration, the
 terrain path on procedural heightmaps, the sphere-box stack (BASELINE
-config 2), and loose cylinders, cones and convex meshes on procedural
-heightmaps, through their public entry points:
+config 2), loose cylinders, cones and convex meshes on procedural
+heightmaps, Atlas (BASELINE config 5), and the port's four examples at full
+size, through their public entry points:
 
   1. card and build: the card's name and power limit; the kernels' build
      (K2 from csrc/mf_solve.cu; K1 generated by ops/gpu_step.py for the flat
      scene, as K1c for the terrain scenes, as K1b for the stack and phase
-     18's two other scenes, and as K1c for the debris scenes of phases
-     22-26), seconds and what ptxas says;
+     18's two other scenes, as K1c for the debris scenes of phases 22-26,
+     and as K1a at nv = 29 for Atlas), seconds and what ptxas says;
   K2 path (pipeline.step_batch, fused="never"):
   2. K2 against its plain twin on the card (float32): the ANYmal solver
      inputs at B = 4096, random problems with nc = 1, 4, 12, lin and
@@ -59,8 +60,8 @@ heightmaps, through their public entry points:
   16. tests/goldens/anymal_trot_heightmap.npz through K1c and through the K2
       path (80 steps, f32), under the trot gate of utils/parity.py;
   17. K1c times at B = 16384, 2048, 1024 and 384 (the trot batch);
-  the sphere-box stack (raisimlib_tpu/scenarios/sphere_box_stack.yaml, its
-  values in STACK; "ss", "sb" and "sc" slots, K1b):
+  the sphere-box stack (raisimlib_torch/scenarios/sphere_box_stack.json, read
+  into STACK; "ss", "sb" and "sc" slots, K1b):
   18. K1b against its twin and against the K2 path: the stack at B = 4096
       from the start state (box kicked 0.3 m/s, noise 1e-3 m and 1e-2 m/s)
       and 200 steps into a rollout; two spheres and a capsule ("ss", "sc")
@@ -88,11 +89,26 @@ heightmaps, through their public entry points:
       its COM above the surface, still over the terrain, and not sinking
       (its deepest probe, by the port's pure narrow phase, under 5 mm deep
       at one step of the last 50 at least);
-  26. each source's times at B = 16384, 2048, 1024 and 384, and its bound.
+  26. each source's times at B = 16384, 2048, 1024 and 384, and its bound;
+  the entry points (raisimlib_torch/scenarios, raisimlib_torch/examples):
+  27. the four scenarios through scenarios.build_scene; Atlas's K1 source:
+      lines, operation tally (the twin's and the kernel's), nvcc seconds,
+      ptxas's figures and the block's shared memory;
+  28. Atlas's K1 against its twin and against the K2 path, B = 1024, from the
+      example's perturbed standing states and 20 steps into a rollout; the
+      tails of B = 1037, 20 steps in, and that batch launched twice, bitwise
+      (ATLAS_BRANCH_SHARE says why a few worlds may pass the ceiling);
+  29. tests/goldens/atlas_settle.npz (50 steps, f32) through K1 and the K2
+      path, under the Atlas gate of utils/parity.py;
+  30. examples.atlas_batch.run() (B = 1024 x H = 50, its gate), then Atlas's
+      K1 times at B = 1024, 2048 and 16384 beside its bound;
+  31. examples.anymal_balance.run(), 32. examples.anymal_trot_heightmap.run()
+      and 33. examples.sphere_box_stack.run(), at full size, their gates.
 
-Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20
-and 24 and read just after: each path must launch its own kernel once per
-physics step and the other kernel never. Any failure exits non-zero. The last line of
+Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20,
+24 and 30-33 and read just after: each path must launch its own kernel once
+per physics step and the other kernel never (the examples: K1 once per
+physics step they take, K2 never). Any failure exits non-zero. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernels' numbers, and the line before that the card's name and
 power limit.
@@ -253,10 +269,11 @@ K1_TIGHT = (2e-5, 2e-4)
 K1_CEILING = (5e-4, 5e-3)
 
 
-def check_fused(torch, step, s, tau, pd, label, hts=None):
+def check_fused(torch, step, s, tau, pd, label, hts=None, ceiling_share=0.0):
   """K1 (through its wrapper) against `_fused_plain` on the same inputs
   (and per-world terrain heights `hts` on a heightmap scene); returns (max
-  abs err, K1's state)."""
+  abs err, K1's state). At most `ceiling_share` of the worlds (rounded
+  down; none by default) may pass the ceiling (see ATLAS_BRANCH_SHARE)."""
   from raisimlib_torch.ops import gpu_step as gs
 
   sk = step(s, tau, pd, field_heights=hts)
@@ -268,25 +285,33 @@ def check_fused(torch, step, s, tau, pd, label, hts=None):
   du = (sk.u - up).abs().amax(1)
   frac = float(((dq <= K1_TIGHT[0]) & (du <= K1_TIGHT[1])).float().mean())
   dq_max, du_max = float(dq.max()), float(du.max())
+  over = (dq > K1_CEILING[0]) | (du > K1_CEILING[1])
+  n_over, allowed = int(over.sum()), int(ceiling_share * s.q.shape[0])
   note(f"  {label}: B={s.q.shape[0]} worlds within ({K1_TIGHT[0]:.0e} q, "
-       f"{K1_TIGHT[1]:.0e} u): {frac:.4f}; max |dq| {dq_max:.2e}, max |du| {du_max:.2e}")
-  if frac < 0.99 or dq_max > K1_CEILING[0] or du_max > K1_CEILING[1]:
+       f"{K1_TIGHT[1]:.0e} u): {frac:.4f}; max |dq| {dq_max:.2e}, max |du| {du_max:.2e}"
+       + (f"; {n_over} world(s) past the ceiling, {allowed} allowed "
+          f"{torch.nonzero(over).flatten().tolist()[:8]}" if ceiling_share else ""))
+  if frac < 0.99 or n_over > allowed:
     fail(f"{label}: K1 disagrees with its plain twin")
   return max(dq_max, du_max), sk
 
 
-def check_against_k2(torch, scene, step, s, tau, pd, label, hts=None):
+def check_against_k2(torch, scene, step, s, tau, pd, label, hts=None, share=0.0):
   """K1 against the K2 path (Scene.step_batch) on the same inputs, at the
   kernel-vs-pure bounds of tests/test_torch_step.py (allclose: 5e-4 + 1e-4
-  |ref| on q, 5e-3 + 1e-3 |ref| on u)."""
+  |ref| on q, 5e-3 + 1e-3 |ref| on u), in every world but at most `share`
+  of them (rounded down; none by default)."""
   s1 = step(s, tau, pd, field_heights=hts)
   s2 = scene.step_batch(s, tau, pd, field_heights=hts)
   torch.cuda.synchronize()
-  over_q = float(((s1.q - s2.q).abs() - 5e-4 - 1e-4 * s2.q.abs()).max())
-  over_u = float(((s1.u - s2.u).abs() - 5e-3 - 1e-3 * s2.u.abs()).max())
+  over = ((((s1.q - s2.q).abs() - 5e-4 - 1e-4 * s2.q.abs()).amax(1) > 0.0)
+          | (((s1.u - s2.u).abs() - 5e-3 - 1e-3 * s2.u.abs()).amax(1) > 0.0))
+  n_over, allowed = int(over.sum()), int(share * s.q.shape[0])
   note(f"  {label}: max |dq| {float((s1.q - s2.q).abs().max()):.2e}, "
-       f"max |du| {float((s1.u - s2.u).abs().max()):.2e}")
-  if over_q > 0.0 or over_u > 0.0:
+       f"max |du| {float((s1.u - s2.u).abs().max()):.2e}"
+       + (f"; {n_over} world(s) past the bounds, {allowed} allowed "
+          f"{torch.nonzero(over).flatten().tolist()[:8]}" if share else ""))
+  if n_over > allowed:
     fail(f"{label}: K1 and the K2 path part beyond the kernel-vs-pure bounds")
 
 
@@ -296,7 +321,7 @@ def check_against_k2(torch, scene, step, s, tau, pd, label, hts=None):
 TAIL_BATCHES = (1, 3, 383)
 
 
-def check_tails(torch, step, s, tau, pd, label, hts=None):
+def check_tails(torch, step, s, tau, pd, label, hts=None, ceiling_share=0.0):
   """K1 on the first TAIL_BATCHES worlds of s: each tail within
   check_fused's tiers of the twin and bitwise equal to the same worlds of
   the batch s; and s launched twice, bitwise equal (the lanes of a world
@@ -313,7 +338,7 @@ def check_tails(torch, step, s, tau, pd, label, hts=None):
   for b in TAIL_BATCHES:
     cut = lambda x: None if x is None else x[:b]    # noqa: E731
     e, sk = check_fused(torch, step, State(q=s.q[:b], u=s.u[:b], t=s.t[:b]), tau[:b], cut(pd),
-                        f"{label}, B={b}", cut(hts))
+                        f"{label}, B={b}", cut(hts), ceiling_share)
     if not (torch.equal(sk.q, full.q[:b]) and torch.equal(sk.u, full.u[:b])):
       fail(f"{label}, B={b}: the tail's worlds differ from the same worlds of B={s.q.shape[0]}")
     err = max(err, e)
@@ -612,19 +637,32 @@ def trot_golden(torch, step_for, label, device=None):
   return float(d.max())
 
 
-# BASELINE config 2, the sphere-box stack, as raisimlib_tpu/scenarios/
-# sphere_box_stack.yaml gives it (the card's machine has no PyYAML; a CPU
-# test, tests/test_torch_stack.py, holds these values to the file)
-STACK = {
-    "dt": 0.002,
-    "gravity": (0.0, 0.0, -9.81),
-    "box": {"half_extents": (0.25, 0.25, 0.15), "mass": 2.0, "pos": (0.0, 0.0, 0.151)},
-    "sphere": {"radius": 0.12, "mass": 1.0, "pos": (0.05, 0.0, 0.45)},
-    "sim_seconds": 10.0,
-    "kick_m_s": 0.3,                 # on the box's x dof (u[3])
-    "gates": {"box_rest_z": 0.15, "sphere_rest_z": 0.42, "rest_tol": 0.005,
-              "max_penetration": 0.005, "settled_speed": 0.05},
-}
+def _stack_config():
+  """BASELINE config 2, the sphere-box stack, from the port's scenario file
+  (raisimlib_torch/scenarios/sphere_box_stack.json, a copy of the JAX
+  package's YAML; a CPU test holds the two equal): the world's dt and
+  gravity, the box's and the sphere's add_* arguments, the run's length,
+  kick and gates. None where the file is not beside this script."""
+  path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "raisimlib_torch",
+                      "scenarios", "sphere_box_stack.json")
+  if not os.path.exists(path):
+    return None
+  with open(path) as f:
+    cfg = json.load(f)
+  w, run = cfg["world"], cfg["run"]
+  objs = {o["type"]: o for o in w["objects"]}
+  return {
+      "dt": w["dt"],
+      "gravity": tuple(w["gravity"]),
+      "box": {k: objs["box"][k] for k in ("half_extents", "mass", "pos")},
+      "sphere": {k: objs["sphere"][k] for k in ("radius", "mass", "pos")},
+      "sim_seconds": run["sim_seconds"],
+      "kick_m_s": run["kick_m_s"],             # on the box's x dof (u[3])
+      "gates": run["gates"],
+  }
+
+
+STACK = _stack_config()
 
 
 # Phase 20's noise per world: 1e-3 m on both bodies' positions, 1e-2 m/s on
@@ -1116,6 +1154,299 @@ def run_debris(torch, gs, gc, _build, built, debris, steps, hts64, stream,
   }
 
 
+# Atlas (BASELINE config 5) has 32 plane_pt slots: the 8 corners of its
+# pelvis, torso and two feet boxes. Standing and settling, a few of them sit
+# within 1e-7 m of touching in some worlds, and an f32 rounding (FMA in the
+# kernel, none in the twin, another assembly on the K2 path) puts such a
+# corner on either side: that world's impulses then differ by up to ~0.3 on
+# u. On an H100, 0-2 worlds of 1024 per step did so at steps 0-42 from
+# three seeds of perturbed standing states (PERF.md, section 6), each with a
+# contact within 3e-8 m of its activation or with the f64 reference siding
+# with one of the two f32 paths.
+# So for Atlas at most this share of the worlds may pass the ceiling (and
+# the K2 path's bounds); the tight tier (99% of worlds) is unchanged.
+ATLAS_BRANCH_SHARE = 0.005
+
+
+def atlas_states(torch, scene, q0, B, seed, steps=0, step=None):
+  """B robots as examples/atlas_batch.py makes them (N(0, 0.01) on every q
+  entry, a torch.Generator seeded `seed`), the PD hold's targets and zero
+  torques; then `steps` steps of `step(s, tau, pd)`."""
+  from raisimlib_torch.examples import atlas_batch as ex_atlas
+
+  s = ex_atlas.batch_states(scene, q0, B, torch.Generator(device="cuda").manual_seed(seed))
+  pd = torch.zeros((B, scene.model.nv), device="cuda")
+  pd[:, 6:] = q0[7:]
+  tau = torch.zeros_like(pd)
+  for _ in range(steps):
+    s = step(s, tau, pd)
+  return s, tau, pd
+
+
+def near_touching(torch, scene, s, tol=1e-6):
+  """How many worlds hold a contact slot within `tol` m of touching (the
+  port's pure narrow phase on states s)."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
+
+  c = coll.collide(scene.geoms, scene.pairs, dynamics.fk(scene.model, s.q))
+  return int((c.depth.abs() < tol).any(1).sum())
+
+
+def atlas_golden_scene(torch, g):
+  """The Atlas scenario's world with the golden's per-dof gains, on the card."""
+  from raisimlib_torch import scenarios
+
+  world, _ = scenarios.build_world(scenarios.load("atlas_batch"))
+  f32 = dict(dtype=torch.float32, device="cuda")
+  return world.compile().set_pd_gains(torch.tensor(g["kp"], **f32), torch.tensor(g["kd"], **f32))
+
+
+def atlas_golden(torch, g, step_for, label):
+  """Replay tests/goldens/atlas_settle.npz (50 steps, f32) through
+  `step_for(scene)(state, pd)` on a batch of one world and hold it to the
+  Atlas gate of utils/parity.py (torques within 1e-3 of the 300 N m limit,
+  the base within 2e-3 m). Returns max|dtau|."""
+  from raisimlib_torch.utils import parity
+
+  scene = atlas_golden_scene(torch, g)
+  f32 = dict(dtype=torch.float32, device="cuda")
+  s = scene.init_state(q=torch.tensor(g["q0"][None], **f32), u=torch.tensor(g["u0"][None], **f32))
+  stepfn = step_for(scene)
+  qs, us = [], []
+  with torch.inference_mode():
+    for tgt in g["pd_targets"]:
+      s = stepfn(s, torch.tensor(tgt[None], **f32))
+      qs.append(s.q[0])
+      us.append(s.u[0])
+    qs, us = torch.stack(qs).cpu().numpy(), torch.stack(us).cpu().numpy()
+  dtau, dbase = parity.atlas_deviation(qs, us, g)
+  note(f"  {label}: {len(qs)} steps: max|dtau| {dtau.max():.3e} N m (step {int(dtau.argmax())}, "
+       f"gate {parity.ATLAS_TORQUE_REL * float(g['torque_limit'])}), max|d base| "
+       f"{dbase.max():.3e} m (gate {parity.ATLAS_BASE_GATE})")
+  failures = parity.atlas_gate_failures(qs, us, g)
+  if failures:
+    fail(f"{label} Atlas gate: " + "; ".join(failures))
+  return float(dtau.max())
+
+
+def run_example(torch, gc, gs, mod, label):
+  """`mod.run()` at full size (its own gates assert) with the launch counts
+  set to 0 just before and read just after: K1 once per physics step, K2
+  never. Returns (record, K1 launches)."""
+  note(f"  {label}: python3 -m {mod.__name__}")
+  reset_counts(gc, gs)
+  res = mod.run()
+  counts = read_counts(gc, gs)
+  note(f"  {label}: launches K2 {counts[0]} K1 {counts[1]} for {res['physics_steps']} physics "
+       f"steps; step path {res['step_path']}")
+  if counts != (0, res["physics_steps"]) or res["step_path"] != "K1":
+    fail(f"{label} launched (K2, K1) {counts} times for {res['physics_steps']} physics steps "
+         f"(step path {res['step_path']})")
+  return res, counts[1]
+
+
+def kernel_alone_ms(torch, _build, stream, st, s, pd=None, hts=None, reps=50):
+  """Mean ms of one launch of `st`'s kernel alone (no wrapper) on the states
+  s (and PD targets pd, per-world heights hts), by CUDA events."""
+  B = s.q.shape[0]
+  lib = _build.load(st.kernel.name)
+  tau = torch.zeros_like(s.u)
+  qo, uo = torch.empty_like(s.q), torch.empty_like(s.u)
+  ins = [s.q.contiguous(), s.u.contiguous(), tau] + ([pd.contiguous()] if pd is not None else [])
+  hp = (hts.contiguous().data_ptr(), hts[0].numel()) if hts is not None else (None, 0)
+  ptrs = [x.data_ptr() for x in ins] + ([None] if pd is None else [])
+  return time_cuda(torch, lambda: lib.fused_step_launch(*ptrs, *hp, qo.data_ptr(), uo.data_ptr(),
+                                                        B, stream), reps)
+
+
+def example_shares(torch, _build, stream, scen_steps, res_bal, res_trot, res_stack):
+  """Where each example's timed loop goes: its K1 launches at each batch
+  size times the kernel's time alone there, as a share of the loop's wall
+  time. Returns {example: {...}}."""
+  from raisimlib_torch import scenarios
+
+  out = {}
+  st = scen_steps["anymal_balance"]
+  sc = st.scene
+  ticks, H, K = res_bal["ticks"], res_bal["horizon"], res_bal["samples"]
+  sub = scenarios.load("anymal_balance")["controller"]["substeps"]
+  with torch.inference_mode():
+    ms = {b: kernel_alone_ms(torch, _build, stream, st, *standing_states(torch, sc, b, seed=31)[:2])
+          for b in (K, 1)}
+  wall = ticks / res_bal["mpc_solves_per_s"]
+  busy = ticks * sub * (H * ms[K] + ms[1]) / 1e3
+  out["anymal_balance"] = {"kernel_ms_b%d" % b: v for b, v in ms.items()}
+  out["anymal_balance"].update(wall_s=wall, kernel_share=busy / wall)
+
+  st = scen_steps["anymal_trot_heightmap"]
+  sc = st.scene
+  E, ticks, H, K = (res_trot["n_terrains"], res_trot["ticks"], res_trot["horizon"],
+                    res_trot["samples"])
+  sub = scenarios.load("anymal_trot_heightmap")["controller"]["substeps"]
+  with torch.inference_mode():
+    hts = make_terrains(torch, E)
+    ms = {}
+    for b in (E * K, E):
+      hb = hts.repeat_interleave(b // E, 0)
+      s, pd, _ = terrain_states(torch, sc, hb, seed=32)
+      ms[b] = kernel_alone_ms(torch, _build, stream, st, s, pd, hb)
+  wall = E * ticks / res_trot["mpc_solves_per_s"]
+  busy = ticks * sub * (H * ms[E * K] + ms[E]) / 1e3
+  out["anymal_trot_heightmap"] = {"kernel_ms_b%d" % b: v for b, v in ms.items()}
+  out["anymal_trot_heightmap"].update(wall_s=wall, kernel_share=busy / wall)
+
+  st = scen_steps["sphere_box_stack"]
+  with torch.inference_mode():
+    s = loose_states(torch, st.scene, 1, seed=33, kick=(3, STACK["kick_m_s"]))
+    ms1 = kernel_alone_ms(torch, _build, stream, st, s)
+  out["sphere_box_stack"] = {"kernel_ms_b1": ms1, "wall_s": res_stack["wall_s"],
+                             "kernel_share": res_stack["physics_steps"] * ms1 / 1e3
+                             / res_stack["wall_s"]}
+  for name, x in out.items():
+    note(f"  {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in x.items()))
+  return out
+
+
+def run_entry_points(torch, gs, gc, _build, built, stream, atlas, scen_steps, same_source):
+  """Phases 27-33: the port's scenarios and examples (raisimlib_torch/
+  scenarios, raisimlib_torch/examples), Atlas's K1 at nv = 29 among them.
+  Returns the kernels line's Atlas entry and the examples' records."""
+  from raisimlib_torch.examples import anymal_balance as ex_balance
+  from raisimlib_torch.examples import anymal_trot_heightmap as ex_trot
+  from raisimlib_torch.examples import atlas_batch as ex_atlas
+  from raisimlib_torch.examples import sphere_box_stack as ex_stack
+
+  at_scene, at_q0, at_step = atlas
+  k = at_step.kernel
+  sd = at_step.sd
+
+  # ---- 27. the scenarios ------------------------------------------------------------------
+  note("phase 27: the port's scenarios (raisimlib_torch/scenarios/*.json) through "
+       "scenarios.build_scene")
+  for name, st in scen_steps.items():
+    x = st.sd
+    note(f"  {name}: nq {x.nq}, nv {x.nv}, slots {sorted(set(y.kind for y in x.slots))} x "
+         f"{len(x.slots)}, {len(x.limits)} limit rows; kernel {st.kernel.name}, the source of "
+         f"{same_source[name]}")
+  with torch.inference_mode():
+    s1, tau1, pd1 = atlas_states(torch, at_scene, at_q0, 1, seed=27)
+    *_, twin_ops = gs._fused_plain(sd, s1.q, s1.u, tau1, pd1, return_ops=True)
+  at_fig = source_figures(gs, _build, k)
+  note(f"  atlas_batch: nq {sd.nq}, nv {sd.nv}, slots {sorted(set(y.kind for y in sd.slots))} x "
+       f"{len(sd.slots)}, {len(sd.limits)} limit rows; K1 source {k.source.count(chr(10))} lines, "
+       f"{k.ops_per_world} operations per world (twin's tally {twin_ops}); nvcc "
+       f"{built.get(k.name, 0.0):.2f} s; {at_fig}")
+  if twin_ops != k.ops_per_world:
+    fail(f"Atlas: the twin's tally {twin_ops} is not the kernel's {k.ops_per_world}")
+
+  # ---- 28. Atlas's K1 against its twin and the K2 path ----------------------------------------
+  B_at = 1024
+  note(f"phase 28: Atlas's K1 (nv = 29) vs plain twin (float32), and vs the K2 path, B={B_at}")
+  share = ATLAS_BRANCH_SHARE
+  errs = []
+  with torch.inference_mode():
+    s, tau, pd = atlas_states(torch, at_scene, at_q0, B_at, seed=28)
+    errs.append(check_fused(torch, at_step, s, tau, pd, "Atlas, perturbed standing states",
+                            ceiling_share=share)[0])
+    check_against_k2(torch, at_scene, at_step, s, tau, pd, "Atlas, K1 vs K2 path, standing",
+                     share=share)
+    for _ in range(20):
+      s = at_step(s, tau, pd)
+    note(f"  20 steps in: pelvis z [{float(s.q[:, 2].min()):.4f}, {float(s.q[:, 2].max()):.4f}]; "
+         f"{near_touching(torch, at_scene, s)} worlds with a contact within 1e-6 m of touching")
+    errs.append(check_fused(torch, at_step, s, tau, pd, "Atlas, 20 steps into a rollout",
+                            ceiling_share=share)[0])
+    check_against_k2(torch, at_scene, at_step, s, tau, pd, "Atlas, K1 vs K2 path, 20 steps in",
+                     share=share)
+    s, tau, pd = atlas_states(torch, at_scene, at_q0, 1037, seed=29, steps=20, step=at_step)
+    errs.append(check_tails(torch, at_step, s, tau, pd, "Atlas, B=1037, 20 steps in",
+                            ceiling_share=share))
+
+  # ---- 29. the Atlas golden through K1 and the K2 path ---------------------------------------
+  note("phase 29: Atlas golden (tests/goldens/atlas_settle.npz, 50 steps) through K1 and the "
+       "K2 path")
+  here = os.path.dirname(os.path.abspath(__file__))
+  g = np.load(os.path.join(here, "tests", "goldens", "atlas_settle.npz"))
+
+  def fused_atlas(sc):
+    step = gs.make_step_batch_fused(sc)
+    return lambda st, p: step(st, torch.zeros_like(p), p)
+
+  golden = {"K1": atlas_golden(torch, g, fused_atlas, "K1"),
+            "K2": atlas_golden(torch, g, lambda sc: lambda st, p: sc.step_batch(st, pd_target=p),
+                               "K2")}
+
+  # ---- 30. the Atlas example, then Atlas's K1 times --------------------------------------------
+  note("phase 30: examples.atlas_batch.run() (B = 1024 x H = 50), then Atlas's K1 times")
+  res_at, at_launches = run_example(torch, gc, gs, ex_atlas, "atlas_batch")
+  lib = _build.load(k.name)
+  times = {}
+  with torch.inference_mode():
+    for b, seed in ((B_at, 30), (2048, 31), (16384, 32)):
+      sb, taub, pdb = atlas_states(torch, at_scene, at_q0, b, seed=seed, steps=20, step=at_step)
+      qo, uo = torch.empty_like(sb.q), torch.empty_like(sb.u)
+      ptrs = [x.data_ptr() for x in (sb.q, sb.u, taub, pdb)]
+      times[b] = (time_cuda(torch, lambda: at_step(sb, taub, pdb), 20),
+                  time_cuda(torch, lambda: lib.fused_step_launch(
+                      *ptrs, None, 0, qo.data_ptr(), uo.data_ptr(), b, stream), 20))
+      if b == B_at:
+        plain_ms = time_cuda(torch, lambda: gs._fused_plain(sd, sb.q, sb.u, taub, pdb), 2)
+  nbytes, nops = gs.fused_step_cost(sd, B_at, k.ops_per_world)
+  t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_F32_OPS_PER_S * 1e3
+  note(f"  B={B_at}: wrapper {times[B_at][0]:.3f} ms (kernel alone {times[B_at][1]:.3f} ms), plain "
+       f"twin {plain_ms:.3f} ms; bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.2f} MB -> "
+       f"{t_bytes:.4f} ms, {nops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms); " + "; ".join(
+           f"B={b}: wrapper {times[b][0]:.3f} ms (kernel alone {times[b][1]:.3f} ms)"
+           for b in times if b != B_at))
+  note(f"  Atlas's K1 source: {at_fig}")
+
+  # ---- 31-33. the other examples ---------------------------------------------------------------
+  note("phase 31: examples.anymal_balance.run() (MPPI, K = 128, H = 25, 100 ticks, through K1a)")
+  res_bal, bal_launches = run_example(torch, gc, gs, ex_balance, "anymal_balance")
+  note("phase 32: examples.anymal_trot_heightmap.run() (4 terrains x 96 samples, H = 16, 150 "
+       "ticks, through K1c)")
+  res_trot, trot_launches = run_example(torch, gc, gs, ex_trot, "anymal_trot_heightmap")
+  note("phase 33: examples.sphere_box_stack.run() (10 s of one world, through K1b at B = 1)")
+  res_stack, stack_launches = run_example(torch, gc, gs, ex_stack, "sphere_box_stack")
+  note("  the examples' kernel time (each batch's launches x the kernel alone there) against "
+       "their timed loops")
+  shares = example_shares(torch, _build, stream, scen_steps, res_bal, res_trot, res_stack)
+  res_at["kernel_share"] = res_at["horizon"] * times[B_at][1] / 1e3 * res_at["rollouts_per_s"] / B_at
+
+  entry = {
+      "name": "fused_step (K1a at nv = 29: Atlas, 32 plane_pt slots + 23 limit rows; "
+              "cone_solve K3 inlined)",
+      "route": "cuda",
+      "source": "raisimlib_torch/ops/gpu_step.py",
+      "template": "raisimlib_torch/csrc/fused_step.cuh",
+      "replaces": "raisimlib_tpu/ops/pallas_step.py:995",
+      "launches": at_launches,
+      "max_abs_err": max(errs),
+      "ms": times[B_at][0],
+      "kernel_only_ms": times[B_at][1],
+      "plain_ms": plain_ms,
+      "bound_ms": max(t_bytes, t_ops),
+      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+      "library_ms": None,
+      "batch": B_at,
+      **{f"{key}_b{b}": times[b][i] for b in times if b != B_at
+         for i, key in enumerate(("ms", "kernel_only_ms"))},
+      "ops_per_world": k.ops_per_world,
+      "build_s": built.get(k.name),
+      "ptxas": at_fig,
+      "golden_max_dtau": golden,
+  }
+  for name, x in shares.items():
+    {"anymal_balance": res_bal, "anymal_trot_heightmap": res_trot,
+     "sphere_box_stack": res_stack}[name]["kernel_share"] = x["kernel_share"]
+  examples = {"atlas_batch": res_at, "anymal_balance": res_bal,
+              "anymal_trot_heightmap": res_trot, "sphere_box_stack": res_stack}
+  launches = {"anymal_balance": bal_launches, "anymal_trot_heightmap": trot_launches,
+              "sphere_box_stack": stack_launches}
+  return entry, examples, launches
+
+
 def main():
   import torch
 
@@ -1148,7 +1479,7 @@ def main():
   # the gains are constants of the generated source: the trot scene (kp 120,
   # kd 3; phases 15, 16) has a kernel of its own, built here too, so that no
   # build falls inside a timed loop
-  gs.make_step_batch_fused(anymal_scene(torch, kp=120.0, kd=3.0, terrain=True)).kernel
+  kern_trot = gs.make_step_batch_fused(anymal_scene(torch, kp=120.0, kd=3.0, terrain=True)).kernel
   # K1b: the sphere-box stack (phases 18-21) and phase 18's two other scenes
   sscene = stack_scene(torch)
   fused_b = gs.make_step_batch_fused(sscene, use_pd=False)
@@ -1164,6 +1495,24 @@ def main():
   debris_steps = {n: gs.make_step_batch_fused(sc, use_pd=False) for n, sc in debris.items()}
   for st in debris_steps.values():
     st.kernel
+  # the port's scenarios (phases 27-33): Atlas's K1 at nv = 29 (its own
+  # kernel; the golden's gains are the scenario's), and the three other
+  # examples' scenes, whose sources are those of the scenes above
+  from raisimlib_torch import scenarios
+  from raisimlib_torch.examples import atlas_batch as ex_atlas
+
+  at_scene, at_q0, _ = ex_atlas.build_scene()
+  at_step = gs.make_step_batch_fused(at_scene)
+  at_step.kernel
+  g_at = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                              "atlas_settle.npz"))
+  gs.make_step_batch_fused(atlas_golden_scene(torch, g_at)).kernel
+  scen_steps = {n: gs.make_step_batch_fused(scenarios.build_scene(scenarios.load(n))[0],
+                                            use_pd=n != "sphere_box_stack")
+                for n in ("anymal_balance", "anymal_trot_heightmap", "sphere_box_stack")}
+  same_source = {n: {kern.name: "phase 7's flat scene", kern_trot.name: "phase 15's trot scene",
+                     kern_b.name: "phase 18's stack"}.get(st.kernel.name, "no earlier scene")
+                 for n, st in scen_steps.items()}
   t0 = time.perf_counter()
   built = _build.build()
   note(f"build: {time.perf_counter() - t0:.2f} s in parallel; "
@@ -1615,15 +1964,28 @@ def main():
       "stack_golden_max_dq": stack_dev,
   }
   k1c_shapes = run_debris(torch, gs, gc, _build, built, debris, debris_steps, hts64, stream)
+  k1_atlas, examples, ex_launches = run_entry_points(
+      torch, gs, gc, _build, built, stream, (at_scene, at_q0, at_step), scen_steps, same_source)
+  k1["launches_balance_example"] = ex_launches["anymal_balance"]
+  k1c["launches_trot_example"] = ex_launches["anymal_trot_heightmap"]
+  k1b["launches_stack_example"] = ex_launches["sphere_box_stack"]
 
   note(f"  end to end: rollouts/s through K1 {B / t_roll1:.1f}; MPPI solves/s through "
        f"K2 {32 / t_mppi:.2f}, through K1 {32 / t_mppi1:.2f}; terrain rollouts/s through K1c "
        f"{B / t_roll_c:.1f}; trot MPC solves/s through K1c {trot_solves:.2f}; stack "
        f"world-steps/s through K1b {stack_rate:.0f}; debris world-steps/s through K1c "
        f"{ {n: round(x['world_steps_per_s']) for n, x in k1c_shapes['sources'].items()} }")
+  ex_b, ex_t, ex_s, ex_a = (examples[n] for n in ("anymal_balance", "anymal_trot_heightmap",
+                                                  "sphere_box_stack", "atlas_batch"))
+  note(f"  the examples: balance MPC solves/s {ex_b['mpc_solves_per_s']:.2f} (final height "
+       f"{ex_b['final_height']:.3f} m, passive {ex_b['passive_final_height']:.3f} m); trot MPC "
+       f"solves/s {ex_t['mpc_solves_per_s']:.2f} (min forward {ex_t['min_forward_m']:.3f} m); "
+       f"stack world-steps/s {ex_s['physics_steps'] / ex_s['wall_s']:.0f} (realtime factor "
+       f"{ex_s['realtime_factor']:.2f}); Atlas rollouts/s {ex_a['rollouts_per_s']:.1f}, "
+       f"world-steps/s {ex_a['steps_per_s']:.0f}, standing {ex_a['standing_fraction']:.4f}")
   note(f"total {time.perf_counter() - t_start:.1f} s")
   note(f"card: {card}")
-  print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes]}), flush=True)
+  print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes, k1_atlas]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

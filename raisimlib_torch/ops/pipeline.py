@@ -209,6 +209,28 @@ def step(scene, state: State, tau, pd_target=None,
   return _post_solve(scene, state, ctx, lam)
 
 
+def step_with_report(scene, state: State, tau, pd_target=None,
+                     config: StepConfig = StepConfig(), field_heights=None):
+  """`step`, and what it solved (RaiSim's `getContacts()` / `getImpulse()`):
+  returns (new_state, contacts, lam_loc, lam_world), the ContactSet of the
+  entering state and the impulses (B, n_rows, 3) in the contact frames
+  (t1, t2, n) and in the world frame (constraint rows keep their own
+  frame). Slower than `step`: the collision runs twice."""
+  solver_in, ctx = _pre_solve(scene, state, tau, pd_target, config, field_heights)
+  G, c0, mu, active = solver_in
+  lam_loc = ct.solve_contacts(G, c0, mu, active, config=config.solver)
+  new_state = _post_solve(scene, state, ctx, lam_loc)
+  # the contact frames again: the step keeps only the rotated rows
+  kin = dynamics.fk(scene.model, state.q, state.u)
+  contacts = coll.collide(scene.geoms, scene.pairs, kin,
+                          scene_field(scene, field_heights, state.q.device))
+  ncc = contacts.depth.shape[1]
+  C = _tangent_frames(contacts.normal)                      # (B, ncc, 3, 3)
+  lam_world = lam_loc.clone()
+  lam_world[:, :ncc] = (C.transpose(-1, -2) @ lam_loc[:, :ncc, :, None])[..., 0]
+  return new_state, contacts, lam_loc, lam_world
+
+
 def solver_inputs(scene, state: State, tau, pd_target=None,
                   config: StepConfig = StepConfig(), field_heights=None):
   """The factors the batched solve consumes, and its config with the row kinds.

@@ -34,6 +34,14 @@ heights (box z 0.15, sphere z 0.42) within 2e-3 at its end. It holds every
 step path, the batched ones included: on the CPU in float32 the K2 twin and
 the fused step's body stay within 4.4e-7 of the golden over all 400 steps
 (tools/stack_golden_gate.py), so the stack needs no two-part gate.
+
+tests/goldens/atlas_settle.npz holds 50 f64 reference steps of Atlas
+(BASELINE config 5) settling under its per-group PD hold (kp 8000 on the
+legs, 4000 on the back, 400 on the arms; dt = 4 ms). Its torques are
+O(100) N m, so the JAX package's gate (tests/test_parity.py,
+TestAtlasSettle) is relative to the 300 N m actuator limit: max |applied
+torque difference| <= 1e-3 x 300 N m, and the base position within 2e-3 m
+of the golden's at every step.
 """
 
 from __future__ import annotations
@@ -149,4 +157,36 @@ def stack_gate_failures(qs, g):
     for name, k, z in (("box", 2, STACK_REST[0]), ("sphere", 9, STACK_REST[1])):
       if abs(float(qs[-1][k]) - z) >= STACK_REST_TOL:
         out.append(f"{name} rests at z = {float(qs[-1][k]):.5f}, not {z} +- {STACK_REST_TOL}")
+  return out
+
+
+ATLAS_TORQUE_REL = 1e-3       # of the actuator limit (the golden's torque_limit)
+ATLAS_BASE_GATE = 2e-3        # m, base position
+
+
+def atlas_deviation(qs, us, g):
+  """Per step: (max |applied torque - the golden's| (N m), max |base
+  position - the golden's| (m)), over the first len(qs) steps of the Atlas
+  golden, with its per-dof gains."""
+  T = len(qs)
+  kp, kd = np.asarray(g["kp"])[6:], np.asarray(g["kd"])[6:]
+  lim = float(g["torque_limit"])
+  tgts = np.asarray(g["pd_targets"])[:T]
+  qs, us = np.asarray(qs, np.float64), np.asarray(us, np.float64)
+  ours = applied_torques(qs, us, g["q0"], tgts, kp, kd, lim)
+  ref = applied_torques(np.asarray(g["q"])[:T], np.asarray(g["u"])[:T], g["q0"], tgts, kp, kd,
+                        lim)
+  return np.abs(ours - ref).max(1), np.abs(qs[:, :3] - np.asarray(g["q"])[:T, :3]).max(1)
+
+
+def atlas_gate_failures(qs, us, g):
+  """Messages for every breach of the Atlas gate (empty = pass)."""
+  dtau, dbase = atlas_deviation(qs, us, g)
+  gate = ATLAS_TORQUE_REL * float(g["torque_limit"])
+  out = []
+  if dtau.max() > gate:
+    out.append(f"max|dtau| = {dtau.max():.3e} > {gate} N m (step {int(dtau.argmax())})")
+  if dbase.max() > ATLAS_BASE_GATE:
+    out.append(f"max|d base| = {dbase.max():.3e} > {ATLAS_BASE_GATE} m "
+               f"(step {int(dbase.argmax())})")
   return out

@@ -72,6 +72,11 @@ class World:
     self._materials.append((float(mu), float(restitution), float(threshold)))
     return len(self._materials) - 1
 
+  def set_default_friction(self, mu: float) -> None:
+    """The friction coefficient of material 0, the default of every geom."""
+    m = self._materials[0]
+    self._materials[0] = (float(mu), m[1], m[2])
+
   def set_material_pair_prop(self, mat_a: int, mat_b: int, mu: float,
                              restitution: float = 0.0, threshold: float = 0.001):
     key = (min(mat_a, mat_b), max(mat_a, mat_b))

@@ -2,7 +2,8 @@
 batches whose last block is partly empty and where one world does not fit a
 block, and the fused step K1 on the
 plane, on a heightmap, with the sphere pairs and with loose cylinders, cones
-and meshes on a heightmap, and at batches whose last warp is partly empty)
+and meshes on a heightmap, Atlas at nv = 29, and at batches whose last warp
+is partly empty)
 against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
 is not needed,
 so on the GPU machine they run without the JAX test configuration:
@@ -199,6 +200,43 @@ def test_debris_fused_step_kernel_matches_plain_twin():
           assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99, name
           assert dq.max() <= 5e-4 and du.max() <= 5e-3, name
         s = step(s, tau, field_heights=hts)
+
+
+@pytest.mark.cuda
+def test_atlas_fused_step_kernel_matches_plain_twin():
+  """K1 at nv = 29: Atlas (the atlas_batch scenario, 32 plane_pt slots, 23
+  limit rows) against `_fused_plain` on the card at B = 1037, from states
+  around the Atlas golden's start. The tiers of the ANYmal case, but up to
+  0.5% of worlds may pass the ceiling: a box corner within ~1e-7 m of the
+  ground touches on one side of an f32 rounding and not on the other
+  (chip_smoke.py, ATLAS_BRANCH_SHARE)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  import numpy as np
+
+  from raisimlib_torch import scenarios
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops.integrator import State
+
+  g = load_golden("atlas_settle.npz")
+  scene = scenarios.build_scene(scenarios.load("atlas_batch"), device="cuda")[0]
+  step = gpu_step.make_step_batch_fused(scene)
+  rng = np.random.RandomState(12)
+  q = np.tile(g["q0"], (1037, 1)) + 1e-3 * rng.randn(1037, 30)
+  q[:, 3:7] /= np.linalg.norm(q[:, 3:7], axis=1, keepdims=True)
+  u = np.tile(g["u0"], (1037, 1)) + 1e-2 * rng.randn(1037, 29)
+  f32 = dict(dtype=torch.float32, device="cuda")
+  pd = torch.tensor(np.tile(g["pd_targets"][0], (1037, 1)), **f32)
+  tau = torch.zeros_like(pd)
+  s = State(q=torch.tensor(q, **f32), u=torch.tensor(u, **f32), t=torch.zeros(1037, **f32))
+  with torch.inference_mode():
+    sk = step(s, tau, pd)
+    qp, up = gpu_step._fused_plain(step.sd, s.q, s.u, tau, pd)
+  torch.cuda.synchronize()
+  dq = (sk.q - qp).abs().amax(1).cpu().numpy()
+  du = (sk.u - up).abs().amax(1).cpu().numpy()
+  assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
+  assert ((dq > 5e-4) | (du > 5e-3)).sum() <= int(0.005 * 1037)
 
 
 @pytest.mark.cuda

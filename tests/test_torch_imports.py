@@ -1,5 +1,6 @@
-"""The port stands alone: raisimlib_torch imports no jax, flax or raisimlib_tpu,
-and its entry points default to the CUDA device."""
+"""The port stands alone: raisimlib_torch (its scenarios, utilities and
+examples included) imports no jax, flax or raisimlib_tpu, and its entry points
+default to the CUDA device."""
 
 import ast
 import os
@@ -18,7 +19,12 @@ def test_import_loads_no_jax():
           "raisimlib_torch.mpc.mppi, raisimlib_torch.mpc.state_map, "
           "raisimlib_torch.ops.pipeline, raisimlib_torch.ops.gpu_step, "
           "raisimlib_torch.ops.heightmap, raisimlib_torch.utils.terrain, "
-          "raisimlib_torch.utils.parity\n"
+          "raisimlib_torch.utils.parity, raisimlib_torch.scenarios, "
+          "raisimlib_torch.utils.metrics, raisimlib_torch.utils.trajectory, "
+          "raisimlib_torch.models.atlas, raisimlib_torch.examples.anymal_balance, "
+          "raisimlib_torch.examples.anymal_trot_heightmap, "
+          "raisimlib_torch.examples.atlas_batch, raisimlib_torch.examples.replay, "
+          "raisimlib_torch.examples.sphere_box_stack\n"
           f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
           "print(bad); sys.exit(1 if bad else 0)")
   env = dict(os.environ, PYTHONPATH=REPO)
