@@ -8,8 +8,10 @@ It builds the hand-written kernels (one nvcc per source, in parallel), then
 drives the port's two main paths on the ANYmal balance configuration, the
 terrain path on procedural heightmaps, the sphere-box stack (BASELINE
 config 2), loose cylinders, cones and convex meshes on procedural
-heightmaps, Atlas (BASELINE config 5), and the port's four examples at full
-size, through their public entry points:
+heightmaps, Atlas (BASELINE config 5), the port's examples at full size,
+and iLQR (the cartpole swing-up, BASELINE config 1, and the ANYmal balance
+iLQR of bench.py, whose derivative stacks run through K1), through their
+public entry points:
 
   1. card and build: the card's name and power limit; the kernels' build
      (K2 from csrc/mf_solve.cu; K1 generated by ops/gpu_step.py for the flat
@@ -103,12 +105,29 @@ size, through their public entry points:
   30. examples.atlas_batch.run() (B = 1024 x H = 50, its gate), then Atlas's
       K1 times at B = 1024, 2048 and 16384 beside its bound;
   31. examples.anymal_balance.run(), 32. examples.anymal_trot_heightmap.run()
-      and 33. examples.sphere_box_stack.run(), at full size, their gates.
+      and 33. examples.sphere_box_stack.run(), at full size, their gates;
+  iLQR (mpc/ilqr.py; the balance problem of mpc/balance_ilqr.py, ANYmal at
+  dt = 0.01 s, whose K1 source phase 1 builds with the others):
+  34. examples.cartpole_swingup.run() (H = 50, 40 iterations, f32, no
+      kernel), its plan within 1e-3 of tests/goldens/cartpole_swingup.npz,
+      the cost within 1e-4, the pole within 0.5 rad of upright;
+  35. bench.py::bench_anymal_ilqr's solve (8 envs, H = 50, 8 iterations,
+      kernel-FD, fd_eps 2e-2): a warm-up, then two timed solves with
+      fd_order 2 (K1 at B = 39,200 for the FD stacks, 64 for the line
+      search, 8 for the rollout) and two with fd_order 1 (B = 20,000):
+      iLQR solves/s, the cost ratio, K1's launches (50 + 8 x 51 a solve);
+      every cost trace finite and non-increasing, the mean ratio of final to
+      initial cost at most 0.5 (fd_order 2);
+  36. the iLQR scene's K1 against its twin at B = 39,200 (an FD stack) and
+      64 (a line-search batch), its tails, relaunched bitwise; its times at
+      39,200, 20,000, 64 and 8 beside its bound, and its share of a solve;
+  37. the same solve with deriv="jvp" (exact Jacobians through the pure
+      path on the card; E = 2 where a solve at E = 8 would pass 60 s).
 
 Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20,
-24 and 30-33 and read just after: each path must launch its own kernel once
-per physics step and the other kernel never (the examples: K1 once per
-physics step they take, K2 never). Any failure exits non-zero. The last line of
+24, 30-35 and 37 and read just after: each path must launch its own kernel
+once per physics step and the other kernel never (the examples: K1 once per
+physics step they take, K2 never; the cartpole neither). Any failure exits non-zero. The last line of
 standard output is one JSON object naming the device; the line before it
 holds the kernels' numbers, and the line before that the card's name and
 power limit.
@@ -1447,6 +1466,289 @@ def run_entry_points(torch, gs, gc, _build, built, stream, atlas, scen_steps, sa
   return entry, examples, launches
 
 
+# ---- phases 34-37: iLQR (mpc/ilqr.py) ---------------------------------------------------------
+
+# bench.py::bench_anymal_ilqr's settings: 8 envs, H = 50, 8 iterations,
+# kernel-FD derivatives (fd_eps 2e-2); a solve launches K1 H times for the
+# nominal rollout and, per iteration, once for the FD stack (2 nd E H rows,
+# or (nd + 1) E H with fd_order 1) and H times for the line search (E *
+# n_alpha rows)
+ILQR_ENVS, ILQR_H, ILQR_ITERS = 8, 50, 8
+ILQR_EXACT_LIMIT_S = 60.0      # phase 37 runs E = 2 where one E = 8 solve would take longer
+
+
+def ilqr_launches(H=ILQR_H, iters=ILQR_ITERS, fd=True):
+  """K1 launches of one solve: the rollout, then per iteration the FD stack
+  (none on the exact path) and the line search."""
+  return H + iters * (int(fd) + H)
+
+
+def run_cartpole(torch, gc, gs):
+  """Phase 34: examples.cartpole_swingup.run() at full size (40 iterations,
+  H = 50, f32 on the card), no kernel launched; its plan against
+  tests/goldens/cartpole_swingup.npz under tests/test_parity.py's gate.
+  Returns the record."""
+  from raisimlib_torch.examples import cartpole_swingup as ex_cart
+
+  here = os.path.dirname(os.path.abspath(__file__))
+  g = np.load(os.path.join(here, "tests", "goldens", "cartpole_swingup.npz"))
+  note("  cartpole_swingup: python3 -m raisimlib_torch.examples.cartpole_swingup")
+  reset_counts(gc, gs)
+  res = ex_cart.run()
+  counts = read_counts(gc, gs)
+  dU = float(np.abs(res.pop("U").astype(np.float64) - g["U"]).max())
+  dcost = abs(res["cost"] - float(g["cost"]))
+  res.update(max_abs_dU_golden=dU, cost_err_golden=dcost)
+  note(f"  cartpole_swingup: solve_s {res['solve_s']:.3f} (warm-up {res['compile_s']:.3f}); "
+       f"max|dU| {dU:.3e} against the golden (gate 1e-3), cost {res['cost']:.6f} (golden "
+       f"{float(g['cost']):.6f}, gate 1e-4), final theta {res['final_theta']:.4f}; launches K2 "
+       f"{counts[0]} K1 {counts[1]}")
+  if counts != (0, 0):
+    fail(f"the cartpole example launched (K2, K1) {counts} times: its dynamics are plain PyTorch")
+  if dU > 1e-3 or dcost > 1e-4 or abs(res["final_theta"] - np.pi) >= 0.5:
+    fail("the cartpole swing-up misses the golden gate")
+  return res
+
+
+def ilqr_starts(torch, q0, seed, dev, n_env=ILQR_ENVS, H=ILQR_H):
+  """bench.py's mk(seed) on `dev`: (x0s (n_env, 37), U0s (n_env, H, 12))."""
+  from raisimlib_torch.mpc import balance_ilqr as bi
+
+  return tuple(torch.tensor(a, device=dev) for a in bi.balance_starts(q0, n_env, H, seed))
+
+
+def solve_balance(torch, gc, gs, scene, q0, config, seeds, dyn_diff=None, n_env=ILQR_ENVS):
+  """Synchronised ilqr_batch solves of the balance problem (one per seed)
+  through make_contact_dyn_batch (K1 on the card), the launch counts set to
+  0 just before the first and read just after the last; then each start's
+  initial cost (the rollout of its plan, outside the counts). Returns
+  (seconds per solve, (K2, K1) counts, solutions, initial costs)."""
+  from raisimlib_torch.mpc import balance_ilqr as bi
+  from raisimlib_torch.mpc.ilqr import ILQRConfig, ilqr_batch
+  from raisimlib_torch.mpc.state_map import make_contact_dyn_batch
+
+  dyn_fast, _, _ = make_contact_dyn_batch(scene, bi.CONTROL_DT, 1, use_pd=True,
+                                            fused="require")
+  dev = scene.device
+  rc, fc, _ = bi.balance_costs(q0, device=dev)
+  starts = [ilqr_starts(torch, q0, s, dev, n_env) for s in seeds]
+  times, sols = [], []
+  sync(torch, dev)
+  reset_counts(gc, gs)
+  for x0s, U0s in starts:
+    t0 = time.perf_counter()
+    sols.append(ilqr_batch(dyn_fast, dyn_diff, rc, fc, x0s, U0s, config))
+    sync(torch, dev)
+    times.append(time.perf_counter() - t0)
+  counts = read_counts(gc, gs)
+  none = ILQRConfig(iters=0, deriv="fd")
+  c0s = [ilqr_batch(dyn_fast, None, rc, fc, x0s, U0s, none).cost for x0s, U0s in starts]
+  return times, counts, sols, c0s
+
+
+def ilqr_gates(torch, label, sols, c0s):
+  """Every env's cost trace finite and non-increasing (from its initial
+  cost on). Returns the mean ratio of final to initial cost, and bench.py's
+  (final over the first iteration's)."""
+  ratios, bench_ratios = [], []
+  for sol, c0 in zip(sols, c0s):
+    ct = torch.cat([c0[:, None], sol.cost_trace], 1)
+    if not bool(torch.isfinite(ct).all()):
+      fail(f"{label}: a cost trace is not finite")
+    if not bool((ct[:, 1:] <= ct[:, :-1]).all()):
+      fail(f"{label}: a cost trace rises")
+    ratios.append(float((sol.cost / c0).mean()))
+    bench_ratios.append(float((ct[:, -1] / ct[:, 1]).mean()))
+  return float(np.mean(ratios)), float(np.mean(bench_ratios))
+
+
+def ilqr_check_rows(torch, q0, dyn_step, dev):
+  """Phase 36's inputs on the iLQR scene: the FD batch of an iteration (2
+  nd rows around each of E * H = 400 base rows, fd_rows' layout) and a
+  line-search batch of E * n_alpha = 64 rows, from the 8 starts of mk(7)
+  after 20 steps of the standing targets (the feet settled into contact:
+  the standing pose itself holds them within rounding of activation, where
+  K1 and its twin may branch apart as on Atlas). Returns {B: (state, tau,
+  pd)}."""
+  from raisimlib_torch.mpc.ilqr import fd_rows
+  from raisimlib_torch.ops.integrator import State
+
+  x0s, U0s = ilqr_starts(torch, q0, 7, dev)
+  x = x0s
+  for _ in range(20):
+    x = dyn_step(x, U0s[:, 0], 0)
+  xs = [x]
+  for t in range(ILQR_H):
+    xs.append(dyn_step(xs[-1], U0s[:, t], t))
+  X = torch.stack(xs[:-1], 1).reshape(-1, 37)
+  gen = torch.Generator(device=dev).manual_seed(36)
+  U = U0s.reshape(-1, 12) + 0.02 * torch.randn(X.shape[0], 12, device=dev, generator=gen)
+  rows = {2 * 49 * X.shape[0]: fd_rows(X, U, 2e-2, 2), 49 * X.shape[0] + X.shape[0]:
+          fd_rows(X, U, 2e-2, 1), 64: (X[10::ILQR_H].repeat_interleave(8, 0), U[:64]),
+          ILQR_ENVS: (X[::ILQR_H], U[::ILQR_H])}
+  out = {}
+  for b, (Xb, Ub) in rows.items():
+    pd = torch.zeros((b, 18), device=dev)
+    pd[:, 6:] = Ub
+    out[b] = (State(q=Xb[:, :19].contiguous(), u=Xb[:, 19:].contiguous(),
+                    t=torch.zeros(b, device=dev)), torch.zeros_like(pd), pd)
+  return out
+
+
+def run_ilqr(torch, gs, gc, _build, built, stream, il_step):
+  """Phases 34-37: the cartpole swing-up (config 1), and the ANYmal balance
+  iLQR of bench.py::bench_anymal_ilqr through K1 at its new batches: the FD
+  stacks (39,200 rows, 20,000 with fd_order 1), the line search (64) and
+  the rollout (8). Returns the kernels line's entry for the iLQR scene's
+  K1 and the records."""
+  from raisimlib_torch.models import anymal
+  from raisimlib_torch.mpc import balance_ilqr as bi
+  from raisimlib_torch.mpc.ilqr import ILQRConfig, fd_rows
+  from raisimlib_torch.mpc.state_map import make_contact_dyn_batch
+  from raisimlib_torch.ops.integrator import State
+
+  scene = il_step.scene
+  q0 = anymal.standing_q()
+  k = il_step.kernel
+  rec = {}
+
+  # ---- 34. the cartpole swing-up ----------------------------------------------------------------
+  note("phase 34: examples.cartpole_swingup.run() (BASELINE config 1: iLQR, H = 50, 40 "
+       "iterations, f32 on the card) against tests/goldens/cartpole_swingup.npz")
+  rec["cartpole_swingup"] = run_cartpole(torch, gc, gs)
+
+  # ---- 35. the ANYmal balance iLQR, kernel-FD through K1 -----------------------------------------
+  B_fd = 2 * 49 * ILQR_ENVS * ILQR_H
+  note(f"phase 35: ANYmal balance iLQR (bench.py::bench_anymal_ilqr: {ILQR_ENVS} envs, H = "
+       f"{ILQR_H}, {ILQR_ITERS} iterations, deriv='fd', fd_eps 2e-2) through K1: FD stacks of "
+       f"{B_fd} rows (fd_order 2) and {B_fd // 2 + ILQR_ENVS * ILQR_H} (fd_order 1)")
+  fd = {}
+  for order in (2, 1):
+    cfg = ILQRConfig(iters=ILQR_ITERS, deriv="fd", fd_order=order)
+    if order == 2:                                 # the warm-up solve, mk(0)
+      solve_balance(torch, gc, gs, scene, q0, cfg, (0,))
+    times, counts, sols, c0s = solve_balance(torch, gc, gs, scene, q0, cfg, (1, 2))
+    ratio, bench_ratio = ilqr_gates(torch, f"fd_order {order}", sols, c0s)
+    per = ilqr_launches()
+    fd[order] = {"solves_per_s": ILQR_ENVS / min(times), "seconds": times, "cost_ratio": ratio,
+                 "cost_ratio_bench": bench_ratio, "k1_launches": counts[1],
+                 "k1_launches_per_solve": counts[1] / len(times),
+                 "final_cost_mean": float(torch.cat([s.cost for s in sols]).mean())}
+    note(f"  fd_order {order}: iLQR solves/s {fd[order]['solves_per_s']:.2f} (solves of "
+         f"{', '.join(f'{t:.3f}' for t in times)} s); mean cost ratio final/initial {ratio:.4f} "
+         f"(bench.py's final/first iteration {bench_ratio:.4f}); mean final cost "
+         f"{fd[order]['final_cost_mean']:.5f}; launches K2 {counts[0]} K1 {counts[1]} "
+         f"({counts[1] / len(times):.0f} a solve, expected {per})")
+    if counts != (0, per * len(times)):
+      fail(f"the iLQR (fd_order {order}) launched (K2, K1) {counts} times for {len(times)} "
+           f"solves of {per} steps")
+  if fd[2]["cost_ratio"] > 0.5:
+    fail(f"the kernel-FD iLQR kept {fd[2]['cost_ratio']:.3f} of its initial cost (gate 0.5)")
+  # the main path's first FD batch holds the standing pose itself (t = 0):
+  # how many of its rows have a contact within 1e-6 m of activation
+  sol0 = solve_balance(torch, gc, gs, scene, q0, ILQRConfig(iters=0, deriv="fd"), (1,))[2][0]
+  with torch.inference_mode():
+    Xf, _ = fd_rows(sol0.X[:, :-1].reshape(-1, 37), sol0.U.reshape(-1, 12), 2e-2, 2)
+    near = near_touching(torch, scene, State(q=Xf[:, :19], u=Xf[:, 19:], t=Xf[:, 0]))
+  note(f"  the first iteration's FD batch: {near} of {Xf.shape[0]} rows with a contact within "
+       f"1e-6 m of activation (the standing pose at t = 0)")
+
+  # ---- 36. K1 at the iLQR scene against its twin ------------------------------------------------
+  note(f"phase 36: the iLQR scene's K1 (ANYmal, dt = 0.01 s) vs plain twin (float32) at "
+       f"B={B_fd} (an FD stack) and 64 (a line-search batch), and its times")
+  dyn_step, _, _ = make_contact_dyn_batch(scene, bi.CONTROL_DT, 1, use_pd=True,
+                                            fused="require")
+  errs, times = [], {}
+  with torch.inference_mode():
+    rows = ilqr_check_rows(torch, q0, dyn_step, scene.device)
+    s, tau, pd = rows[B_fd]
+    errs.append(check_fused(torch, il_step, s, tau, pd, f"iLQR FD stack, B={B_fd}")[0])
+    errs.append(check_tails(torch, il_step, s, tau, pd, f"iLQR FD stack, B={B_fd}"))
+    s, tau, pd = rows[64]
+    errs.append(check_fused(torch, il_step, s, tau, pd, "iLQR line search, B=64")[0])
+    a, b = il_step(s, tau, pd), il_step(s, tau, pd)
+    sync(torch, scene.device)
+    if not (torch.equal(a.q, b.q) and torch.equal(a.u, b.u)):
+      fail("iLQR line search, B=64: two launches on the same inputs differ")
+    note("  iLQR line search, B=64: twice, bitwise equal")
+    for b_, (s, tau, pd) in rows.items():
+      times[b_] = (time_cuda(torch, lambda: il_step(s, tau, pd), 20),
+                   kernel_alone_ms(torch, _build, stream, il_step, s, pd, reps=20))
+    s, tau, pd = rows[B_fd]
+    plain_ms = time_cuda(torch, lambda: gs._fused_plain(il_step.sd, s.q, s.u, tau, pd), 2)
+  bounds = {}
+  for b_ in times:
+    nbytes, nops = gs.fused_step_cost(il_step.sd, b_, k.ops_per_world)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_F32_OPS_PER_S * 1e3
+    bounds[b_] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    note(f"  B={b_}: wrapper {times[b_][0]:.3f} ms, kernel alone {times[b_][1]:.3f} ms; bound "
+         f"{bounds[b_][0]:.4f} ms ({nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.3f} "
+         f"GFLOP -> {t_ops:.4f} ms)" + (f"; plain twin {plain_ms:.3f} ms" if b_ == B_fd else ""))
+  B_fd1 = B_fd // 2 + ILQR_ENVS * ILQR_H
+  for order, b_fd in ((2, B_fd), (1, B_fd1)):
+    busy = (ILQR_H * times[ILQR_ENVS][1]
+            + ILQR_ITERS * (times[b_fd][1] + ILQR_H * times[64][1])) / 1e3
+    fd[order]["k1_share"] = busy / min(fd[order]["seconds"])
+    fd[order]["k1_seconds_per_solve"] = busy
+    note(f"  fd_order {order}: K1 alone {1e3 * busy:.1f} ms a solve ({ILQR_H} x B={ILQR_ENVS} + "
+         f"{ILQR_ITERS} x (B={b_fd} + {ILQR_H} x B=64)), {100 * fd[order]['k1_share']:.1f}% of "
+         f"the {1e3 * min(fd[order]['seconds']):.1f} ms wall")
+  note(f"  K1 source: {source_figures(gs, _build, k)}")
+
+  # ---- 37. the exact path: jvp derivatives through the pure path ----------------------------------
+  note("phase 37: the same problem with deriv='jvp' (exact Jacobians: one forward-mode pass "
+       "through the pure path, make_contact_dyn_batch(use_kernel=False), on the card)")
+  dyn_diff, _, _ = make_contact_dyn_batch(scene, bi.CONTROL_DT, 1, use_pd=True, use_kernel=False)
+  probe, _, _, _ = solve_balance(torch, gc, gs, scene, q0, ILQRConfig(iters=1, deriv="jvp"),
+                                 (1,), dyn_diff)
+  n_env = ILQR_ENVS if probe[0] * ILQR_ITERS <= ILQR_EXACT_LIMIT_S else 2
+  note(f"  one iteration at E={ILQR_ENVS}: {probe[0]:.2f} s; solving at E={n_env}"
+       + ("" if n_env == ILQR_ENVS else f" (a solve at E={ILQR_ENVS} would take over "
+          f"{ILQR_EXACT_LIMIT_S:.0f} s)"))
+  times_j, counts, sols, c0s = solve_balance(
+      torch, gc, gs, scene, q0, ILQRConfig(iters=ILQR_ITERS, deriv="jvp"), (1,), dyn_diff, n_env)
+  ratio_j, _ = ilqr_gates(torch, "deriv 'jvp'", sols, c0s)
+  per = ilqr_launches(fd=False)
+  exact = {"n_env": n_env, "solves_per_s": n_env / times_j[0], "seconds": times_j[0],
+           "cost_ratio": ratio_j, "final_cost_mean": float(sols[0].cost.mean()),
+           "k1_launches": counts[1]}
+  note(f"  exact path: iLQR solves/s {exact['solves_per_s']:.3f} ({times_j[0]:.2f} s at "
+       f"E={n_env}); mean final cost {exact['final_cost_mean']:.5f} (kernel-FD, fd_order 2: "
+       f"{fd[2]['final_cost_mean']:.5f}; the same starts, mk(1){'' if n_env == ILQR_ENVS else ' cut to 2 envs'}); "
+       f"mean cost ratio {ratio_j:.4f}; launches K2 {counts[0]} K1 {counts[1]} (expected {per})")
+  if counts != (0, per):
+    fail(f"the exact-path iLQR launched (K2, K1) {counts} times for {per} steps")
+
+  rec["anymal_ilqr"] = {"fd_order_2": fd[2], "fd_order_1": fd[1], "jvp": exact}
+  entry = {
+      "name": "fused_step (K1a, the iLQR scene: ANYmal at dt = 0.01 s, kp 100, kd 2; cone_solve "
+              "K3 inlined)",
+      "route": "cuda",
+      "source": "raisimlib_torch/ops/gpu_step.py",
+      "template": "raisimlib_torch/csrc/fused_step.cuh",
+      "replaces": "raisimlib_tpu/ops/pallas_step.py:995",
+      "launches": fd[2]["k1_launches"] + fd[1]["k1_launches"] + exact["k1_launches"],
+      "launches_fd_order_2": fd[2]["k1_launches"],
+      "launches_fd_order_1": fd[1]["k1_launches"],
+      "launches_jvp": exact["k1_launches"],
+      "max_abs_err": max(errs),
+      "ms": times[B_fd][0],
+      "kernel_only_ms": times[B_fd][1],
+      "plain_ms": plain_ms,
+      "bound_ms": bounds[B_fd][0],
+      "bound_by": bounds[B_fd][1],
+      "library_ms": None,
+      "batch": B_fd,
+      **{f"{key}_b{b_}": v for b_ in times if b_ != B_fd
+         for key, v in (("ms", times[b_][0]), ("kernel_only_ms", times[b_][1]),
+                        ("bound_ms", bounds[b_][0]))},
+      "ops_per_world": k.ops_per_world,
+      "build_s": built.get(k.name),
+      "ptxas": source_figures(gs, _build, k),
+  }
+  return entry, rec
+
+
 def main():
   import torch
 
@@ -1510,6 +1812,11 @@ def main():
   scen_steps = {n: gs.make_step_batch_fused(scenarios.build_scene(scenarios.load(n))[0],
                                             use_pd=n != "sphere_box_stack")
                 for n in ("anymal_balance", "anymal_trot_heightmap", "sphere_box_stack")}
+  # the iLQR scene (phases 35-37): ANYmal at dt = 0.01 s, a source of its own
+  from raisimlib_torch.mpc import balance_ilqr
+
+  il_step = gs.make_step_batch_fused(balance_ilqr.balance_scene())
+  il_step.kernel
   same_source = {n: {kern.name: "phase 7's flat scene", kern_trot.name: "phase 15's trot scene",
                      kern_b.name: "phase 18's stack"}.get(st.kernel.name, "no earlier scene")
                  for n, st in scen_steps.items()}
@@ -1966,6 +2273,7 @@ def main():
   k1c_shapes = run_debris(torch, gs, gc, _build, built, debris, debris_steps, hts64, stream)
   k1_atlas, examples, ex_launches = run_entry_points(
       torch, gs, gc, _build, built, stream, (at_scene, at_q0, at_step), scen_steps, same_source)
+  k1_ilqr, ilqr_rec = run_ilqr(torch, gs, gc, _build, built, stream, il_step)
   k1["launches_balance_example"] = ex_launches["anymal_balance"]
   k1c["launches_trot_example"] = ex_launches["anymal_trot_heightmap"]
   k1b["launches_stack_example"] = ex_launches["sphere_box_stack"]
@@ -1983,9 +2291,15 @@ def main():
        f"stack world-steps/s {ex_s['physics_steps'] / ex_s['wall_s']:.0f} (realtime factor "
        f"{ex_s['realtime_factor']:.2f}); Atlas rollouts/s {ex_a['rollouts_per_s']:.1f}, "
        f"world-steps/s {ex_a['steps_per_s']:.0f}, standing {ex_a['standing_fraction']:.4f}")
+  il, cp = ilqr_rec["anymal_ilqr"], ilqr_rec["cartpole_swingup"]
+  note(f"  iLQR: cartpole solve {cp['solve_s']:.2f} s (max|dU| {cp['max_abs_dU_golden']:.2e}); "
+       f"ANYmal balance iLQR solves/s {il['fd_order_2']['solves_per_s']:.2f} (fd_order 2), "
+       f"{il['fd_order_1']['solves_per_s']:.2f} (fd_order 1), {il['jvp']['solves_per_s']:.3f} "
+       f"(exact, E={il['jvp']['n_env']}); mean cost ratios {il['fd_order_2']['cost_ratio']:.4f}, "
+       f"{il['fd_order_1']['cost_ratio']:.4f}, {il['jvp']['cost_ratio']:.4f}")
   note(f"total {time.perf_counter() - t_start:.1f} s")
   note(f"card: {card}")
-  print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes, k1_atlas]}), flush=True)
+  print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes, k1_atlas, k1_ilqr]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

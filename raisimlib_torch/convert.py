@@ -1,9 +1,11 @@
-"""Build the port's Scene from arrays: carry a scene across from numpy.
+"""Build the port's Scene or RobotModel from arrays: carry one across from numpy.
 
 `scene_from_numpy` takes the numeric tables of a scene as numpy arrays and
 its static layout as plain Python, so that a scene built elsewhere (the JAX
 package's `World.compile()`, flattened by the caller) becomes the port's
 Scene on `device` without this package importing the other one.
+`model_from_numpy` does the same for a bare RobotModel (a primitive of
+models/primitives.py, say): its half of the tables below.
 
 arrays: model tables (X_rot, X_pos, axis, inertia, mass, actuated,
   torque_limit, joint_lo, joint_hi, q_init), geom tables (geom_params,
@@ -30,6 +32,22 @@ from raisimlib_torch.ops.heightmap import HeightField
 from raisimlib_torch.world import Scene
 
 
+def model_from_numpy(arrays: dict, static: dict, device=None, dtype=None) -> RobotModel:
+  """The RobotModel of the model tables in `arrays` (TENSOR_FIELDS) and the
+  static fields name, parent, joint_types, q_adr, v_adr, nq, nv and
+  body_names, on `device` (None: the card)."""
+  dev = resolve_device(device)
+  dtype = dtype or torch.float32
+  return RobotModel(
+      name=static["name"], parent=tuple(static["parent"]),
+      joint_types=tuple(int(j) for j in static["joint_types"]),
+      q_adr=tuple(static["q_adr"]), v_adr=tuple(static["v_adr"]),
+      nq=int(static["nq"]), nv=int(static["nv"]),
+      body_names=tuple(static["body_names"]),
+      **{f: torch.as_tensor(np.array(arrays[f]), dtype=dtype, device=dev)
+         for f in TENSOR_FIELDS})
+
+
 def scene_from_numpy(arrays: dict, static: dict, device=None, dtype=None) -> Scene:
   dev = resolve_device(device)
   dtype = dtype or torch.float32
@@ -37,13 +55,7 @@ def scene_from_numpy(arrays: dict, static: dict, device=None, dtype=None) -> Sce
   def t(name):
     return torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=dev)
 
-  model = RobotModel(
-      name=static["name"], parent=tuple(static["parent"]),
-      joint_types=tuple(int(j) for j in static["joint_types"]),
-      q_adr=tuple(static["q_adr"]), v_adr=tuple(static["v_adr"]),
-      nq=int(static["nq"]), nv=int(static["nv"]),
-      body_names=tuple(static["body_names"]),
-      **{f: t(f) for f in TENSOR_FIELDS})
+  model = model_from_numpy(arrays, static, dev, dtype)
   geoms = coll.GeomTable(
       gtype=tuple(static["gtype"]), body=tuple(static["geom_body"]),
       material=tuple(static["geom_material"]), params=t("geom_params"),

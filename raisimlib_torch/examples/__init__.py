@@ -4,11 +4,13 @@
     python3 -m raisimlib_torch.examples.anymal_balance [--smoke] [--device cpu]
     python3 -m raisimlib_torch.examples.anymal_trot_heightmap [--smoke] [--device cpu]
     python3 -m raisimlib_torch.examples.atlas_batch [--smoke] [--device cpu]
+    python3 -m raisimlib_torch.examples.cartpole_swingup [--smoke] [--device cpu]
     python3 -m raisimlib_torch.examples.replay metrics/torch/anymal_balance_traj.npz
 
 Each reads its scenario (raisimlib_torch/scenarios/*.json), runs on the card
 unless asked for the CPU (where the kernels' plain twins stand in), builds
-every kernel before its timed loop, asserts its physics gates on a full-size
+every kernel before its timed loop (the cartpole runs none: its dynamics are
+plain PyTorch), asserts its physics gates on a full-size
 run and appends its record to metrics/torch/<name>.jsonl. `run()` takes the
 same settings as keyword arguments.
 """

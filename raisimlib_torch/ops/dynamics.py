@@ -1,4 +1,5 @@
-"""Articulated-body dynamics on batched worlds: FK, RNEA, CRBA, Jacobians.
+"""Articulated-body dynamics on batched worlds: FK, RNEA, CRBA, ABA, Jacobians,
+energy.
 
 Counterpart of raisimlib_tpu/ops/dynamics.py. The tree is static (tuples in
 RobotModel), so each recursion is a Python loop over bodies; every tensor
@@ -208,3 +209,75 @@ def integrate_q(model: RobotModel, q, u, dt):
     else:
       parts.append(q[:, qa:qa + 1] + u[:, va:va + 1] * dt)
   return torch.cat(parts, -1)        # bodies are in coordinate order
+
+
+def aba(model: RobotModel, q, u, tau, gravity, f_ext_w=None):
+  """Articulated-body algorithm: qdd (B, nv) from q (B, nq), u, tau (B, nv)
+  and optional world-frame spatial forces `f_ext_w` (B, nb, 6) at the world
+  origin, one per body. O(nb) with the recursions unrolled over bodies."""
+  nb = model.nb
+  B = q.shape[0]
+  X0, Xup, Ss = [None] * nb, [None] * nb, [None] * nb
+  v, c, IA, pA = [None] * nb, [None] * nb, [None] * nb, [None] * nb
+  for i in range(nb):
+    p_idx = model.parent[i]
+    Xup[i], S = _xup(model, i, q)
+    Ss[i] = S
+    vJ = _vj(model, i, S, u)
+    if p_idx < 0:
+      X0[i], v[i] = Xup[i], vJ
+    else:
+      X0[i] = sp.xform_compose(Xup[i], X0[p_idx])
+      v[i] = sp.xform_motion(Xup[i], v[p_idx]) + vJ
+    c[i] = sp.cross_motion(v[i], vJ) + _joint_cj(model, i, vJ)
+    I6 = model.inertia[i]
+    IA[i] = I6.expand(B, 6, 6)
+    pA[i] = sp.cross_force(v[i], v[i] @ I6.T)
+    if f_ext_w is not None:
+      pA[i] = pA[i] - sp.xform_force(X0[i], f_ext_w[:, i])
+
+  U, Dinv, uu = [None] * nb, [None] * nb, [None] * nb
+  for i in range(nb - 1, -1, -1):
+    S = Ss[i]                                       # (B, nd, 6)
+    va, nd = model.v_adr[i], S.shape[-2]
+    U[i] = IA[i] @ S.transpose(-1, -2)              # (B, 6, nd)
+    D = S @ U[i]                                    # (B, nd, nd)
+    Dinv[i] = 1.0 / D if nd == 1 else torch.linalg.inv(D)
+    uu[i] = tau[:, va:va + nd] - (S @ pA[i].unsqueeze(-1)).squeeze(-1)
+    p_idx = model.parent[i]
+    if p_idx >= 0:
+      Ia = IA[i] - U[i] @ Dinv[i] @ U[i].transpose(-1, -2)
+      pa = (pA[i] + (Ia @ c[i].unsqueeze(-1)).squeeze(-1)
+            + (U[i] @ (Dinv[i] @ uu[i].unsqueeze(-1))).squeeze(-1))
+      Xm = sp.xform_motion_mat(Xup[i])
+      IA[p_idx] = IA[p_idx] + Xm.transpose(-1, -2) @ Ia @ Xm
+      pA[p_idx] = pA[p_idx] + sp.xform_force_inv(Xup[i], pa)
+
+  a_base = torch.cat([torch.zeros(3, dtype=q.dtype, device=q.device),
+                      -gravity.to(q.dtype)]).expand(B, 6)
+  a, qdd = [None] * nb, [None] * nb
+  for i in range(nb):
+    p_idx = model.parent[i]
+    ai = sp.xform_motion(Xup[i], a_base if p_idx < 0 else a[p_idx]) + c[i]
+    S = Ss[i]
+    qdd[i] = (Dinv[i] @ (uu[i] - (U[i].transpose(-1, -2) @ ai.unsqueeze(-1)).squeeze(-1))
+              .unsqueeze(-1)).squeeze(-1)           # (B, nd)
+    a[i] = ai + (qdd[i].unsqueeze(-2) @ S).squeeze(-2)
+  return torch.cat(qdd, -1)          # bodies are in dof order (v_adr ascending)
+
+
+def energy(model: RobotModel, q, u, gravity):
+  """(kinetic, potential) energies of each world, (B,) each."""
+  kin = fk(model, q, u)
+  g = gravity.to(q.dtype)
+  ke = pe = 0.0
+  for i in range(model.nb):
+    # world-frame twist at the world origin -> body frame at the body origin
+    vb = sp.xform_motion((kin.R[:, i].transpose(-1, -2), kin.p[:, i]), kin.vel6[:, i])
+    ke = ke + 0.5 * (vb * (vb @ model.inertia[i].T)).sum(-1)
+    m = model.mass[i]
+    h = model.inertia[i][:3, 3:]                    # skew(m com)
+    com_b = torch.stack([h[2, 1], h[0, 2], h[1, 0]]) / torch.clamp(m, min=1e-12)
+    com_w = kin.p[:, i] + sp._mv(kin.R[:, i], com_b.expand(q.shape[0], 3))
+    pe = pe - m * (com_w @ g)
+  return ke, pe

@@ -2,8 +2,8 @@
 batches whose last block is partly empty and where one world does not fit a
 block, and the fused step K1 on the
 plane, on a heightmap, with the sphere pairs and with loose cylinders, cones
-and meshes on a heightmap, Atlas at nv = 29, and at batches whose last warp
-is partly empty)
+and meshes on a heightmap, Atlas at nv = 29, the iLQR scene at the FD
+batch of 39,200 worlds, and at batches whose last warp is partly empty)
 against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
 is not needed,
 so on the GPU machine they run without the JAX test configuration:
@@ -237,6 +237,55 @@ def test_atlas_fused_step_kernel_matches_plain_twin():
   du = (sk.u - up).abs().amax(1).cpu().numpy()
   assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
   assert ((dq > 5e-4) | (du > 5e-3)).sum() <= int(0.005 * 1037)
+
+
+@pytest.mark.cuda
+def test_ilqr_scene_fused_step_at_the_fd_batch():
+  """The iLQR scene's K1 (ANYmal at dt = 0.01 s, mpc/balance_ilqr.py)
+  against its twin at B = 39,200: the FD stack of one iteration of 8 envs x
+  H = 50 (mpc/ilqr.fd_rows, fd_eps 2e-2, central), around states settled
+  20 steps into a PD hold. The tiers of the plane case; two launches on the
+  same inputs bitwise equal."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from raisimlib_torch.models import anymal
+  from raisimlib_torch.mpc import balance_ilqr as bi
+  from raisimlib_torch.mpc.ilqr import fd_rows
+  from raisimlib_torch.mpc.state_map import make_contact_dyn_batch
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops.integrator import State
+
+  scene = bi.balance_scene(device="cuda")
+  step = gpu_step.make_step_batch_fused(scene)
+  dyn, _, _ = make_contact_dyn_batch(scene, bi.CONTROL_DT, 1, fused="require")
+  x0s, U0s = (torch.tensor(a, device="cuda")
+              for a in bi.balance_starts(anymal.standing_q(), 8, 50, seed=7))
+  with torch.inference_mode():
+    x = x0s
+    for _ in range(20):
+      x = dyn(x, U0s[:, 0], 0)
+    xs = []
+    for t in range(50):
+      xs.append(x)
+      x = dyn(x, U0s[:, t], t)
+    Xs, Us = fd_rows(torch.stack(xs, 1).reshape(400, 37), U0s.reshape(400, 12), 2e-2, 2)
+    B = Xs.shape[0]
+    assert B == 39200
+    pd = torch.zeros((B, 18), device="cuda")
+    pd[:, 6:] = Us
+    tau = torch.zeros_like(pd)
+    s = State(q=Xs[:, :19].contiguous(), u=Xs[:, 19:].contiguous(),
+              t=torch.zeros(B, device="cuda"))
+    n0 = gpu_step.make_step_batch_fused.launches
+    sk, again = step(s, tau, pd), step(s, tau, pd)
+    qp, up = gpu_step._fused_plain(step.sd, s.q, s.u, tau, pd)
+  torch.cuda.synchronize()
+  assert gpu_step.make_step_batch_fused.launches == n0 + 2
+  assert torch.equal(sk.q, again.q) and torch.equal(sk.u, again.u)
+  dq = (sk.q - qp).abs().amax(1).cpu().numpy()
+  du = (sk.u - up).abs().amax(1).cpu().numpy()
+  assert ((dq <= 2e-5) & (du <= 2e-4)).mean() >= 0.99
+  assert dq.max() <= 5e-4 and du.max() <= 5e-3
 
 
 @pytest.mark.cuda

@@ -11,7 +11,6 @@ examples/:
 On the CPU the examples step through the kernels' plain twins; chip_smoke.py
 runs them at full size on the card, with their gates."""
 
-import ast
 import importlib.util
 import math
 import os
@@ -21,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from torch_port_util import jax_record_keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,16 +43,6 @@ def _jax_example(name):
   mod = importlib.util.module_from_spec(spec)
   spec.loader.exec_module(mod)
   return mod
-
-
-def _jax_record_keys(name):
-  """The keys of the `result = {...}` record of examples/<name>.py."""
-  tree = ast.parse(open(os.path.join(REPO, "examples", f"{name}.py")).read())
-  for node in ast.walk(tree):
-    if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
-        and any(isinstance(t, ast.Name) and t.id == "result" for t in node.targets)):
-      return {k.value for k in node.value.keys}
-  raise AssertionError(f"no result record in examples/{name}.py")
 
 
 def _samples(n, seed, x0, nu, act0):
@@ -189,7 +180,7 @@ def test_example_runs_on_the_cpu(name, tmp_path, monkeypatch):
   mod = importlib.import_module(f"raisimlib_torch.examples.{name}")
   path = str(tmp_path / f"{name}.jsonl")
   res = mod.run(smoke=True, device="cpu", metrics_path=path)
-  missing = _jax_record_keys(jax_name) - set(res)
+  missing = jax_record_keys(jax_name) - set(res)
   assert not missing, missing
   assert res["step_path"] == "K1" and res["device"] == "cpu" and res["physics_steps"] > 0
   for k, v in res.items():

@@ -24,7 +24,9 @@ def test_import_loads_no_jax():
           "raisimlib_torch.models.atlas, raisimlib_torch.examples.anymal_balance, "
           "raisimlib_torch.examples.anymal_trot_heightmap, "
           "raisimlib_torch.examples.atlas_batch, raisimlib_torch.examples.replay, "
-          "raisimlib_torch.examples.sphere_box_stack\n"
+          "raisimlib_torch.examples.sphere_box_stack, raisimlib_torch.examples.cartpole_swingup, "
+          "raisimlib_torch.mpc, raisimlib_torch.mpc.ilqr, raisimlib_torch.mpc.smooth, "
+          "raisimlib_torch.mpc.balance_ilqr, raisimlib_torch.models.primitives\n"
           f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
           "print(bad); sys.exit(1 if bad else 0)")
   env = dict(os.environ, PYTHONPATH=REPO)

@@ -70,6 +70,19 @@ def flatten_jax_scene(scene):
   return arrays, static
 
 
+def jax_record_keys(name):
+  """The keys of the `result = {...}` record of examples/<name>.py."""
+  import ast
+
+  path = os.path.join(os.path.dirname(os.path.dirname(GOLDEN_DIR)), "examples", f"{name}.py")
+  tree = ast.parse(open(path).read())
+  for node in ast.walk(tree):
+    if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+        and any(isinstance(t, ast.Name) and t.id == "result" for t in node.targets)):
+      return {k.value for k in node.value.keys}
+  raise AssertionError(f"no result record in examples/{name}.py")
+
+
 def load_chip_smoke():
   """chip_smoke.py as a module (its scene builders and constants)."""
   import importlib.util
