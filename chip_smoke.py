@@ -9,9 +9,11 @@ drives the port's two main paths on the ANYmal balance configuration, the
 terrain path on procedural heightmaps, the sphere-box stack (BASELINE
 config 2), loose cylinders, cones and convex meshes on procedural
 heightmaps, Atlas (BASELINE config 5), the port's examples at full size,
-and iLQR (the cartpole swing-up, BASELINE config 1, and the ANYmal balance
-iLQR of bench.py, whose derivative stacks run through K1), through their
-public entry points:
+iLQR (the cartpole swing-up, BASELINE config 1, and the ANYmal balance
+iLQR of bench.py, whose derivative stacks run through K1), and the scenes
+outside K1's class (box stacks and piles, the support-function pairs,
+compounds, wires and pins) on the K2 path, through their public entry
+points:
 
   1. card and build: the card's name and power limit; the kernels' build
      (K2 from csrc/mf_solve.cu; K1 generated by ops/gpu_step.py for the flat
@@ -23,7 +25,8 @@ public entry points:
      inputs at B = 4096, random problems with nc = 1, 4, 12, lin and
      bilateral rows, and B = 1037 (not a multiple of the block), and at the
      one-thread kernel's caps (nc = 48, nv = 64, B = 257) and past them (nv =
-     100: one world a block, a partial warp);
+     100: one world a block, a partial warp; nc = 100, nv = 304: the rows
+     read from device memory; nc = 4200 refused);
      then the tails (TAIL_BATCHES: the last block partly empty) against the
      twin and bitwise against the same worlds of the ANYmal batch, and that
      batch launched twice, bitwise;
@@ -123,9 +126,25 @@ public entry points:
       39,200, 20,000, 64 and 8 beside its bound, and its share of a solve;
   37. the same solve with deriv="jvp" (exact Jacobians through the pure
       path on the card; E = 2 where a solve at E = 8 would pass 60 s).
+  scenes outside K1's class on the K2 path (Scene.step_batch; box-box,
+  capsule-capsule, the support-function pairs, sphere-cylinder,
+  sphere-mesh, a compound, wires, pins and a compliant wire; K2_PHASES):
+  38. the box tower of the JAX package's tests/test_boxbox.py, B = 4096
+      (x, y offsets within 5 mm), 1,000 steps: nc = 51, nv = 18, rows staged;
+  39. a pile of 8 boxes, B = 1024, 750 steps: nc = 316, nv = 48, about 382
+      KB of rows a world, so K2 reads them from device memory;
+  40. the mixed drop onto a static box (two crossed capsules, a cylinder
+      with a sphere on it, a cone, the rock, a dumbbell compound), B =
+      4096, 500 steps;
+  41. the stiff wire, the pin and the compliant wire of the JAX package's
+      tests/test_constraints.py in one world, dt 1 ms, B = 4096 (1 cm/s
+      initial velocities), 1,000 steps;
+      each with its gates (k2_gates), K2 against its twin on the solver
+      inputs of three steps, its tails and relaunches bitwise, and K2's
+      times beside its bound and the K2 path's step.
 
 Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20,
-24, 30-35 and 37 and read just after: each path must launch its own kernel
+24, 30-35, 37 and 38-41 and read just after: each path must launch its own kernel
 once per physics step and the other kernel never (the examples: K1 once per
 physics step they take, K2 never; the cartpole neither). Any failure exits non-zero. The last line of
 standard output is one JSON object naming the device; the line before it
@@ -208,18 +227,20 @@ def random_problem(torch, B, nc, seed, kinds=(), nv=None):
   return [Jr, Wt, vf, bias, mu, active]
 
 
-def check_kernel(torch, args, kinds, label):
+def check_kernel(torch, args, kinds, label, kernel_out=None, plain_out=None):
   """K2 vs `_mf_plain` on the same inputs, with the two-tier check of
   tests/test_pallas_contact.py: >= 99% of lam entries within 1e-4 of the
   impulse scale, all within 3e-2, and the kernel's objective never worse by
   more than 2e-3 relative; and u within 3e-2 of its scale (max |u| + 1).
-  Returns the max abs error over lam and u, and the kernel's outputs."""
+  `kernel_out` and `plain_out`, where given, are the two (u, lam) already
+  computed on args. Returns the max abs error over lam and u, and the
+  kernel's outputs."""
   from raisimlib_torch.ops import contact as ct
   from raisimlib_torch.ops import gpu_contact as gc
 
   cfg = ct.SolverConfig(row_kinds=kinds)
-  uk, lk = gc.solve_dynamics_batch(*args, cfg)
-  up, lp = gc._mf_plain(*args, cfg)
+  uk, lk = gc.solve_dynamics_batch(*args, cfg) if kernel_out is None else kernel_out
+  up, lp = gc._mf_plain(*args, cfg) if plain_out is None else plain_out
   torch.cuda.synchronize()
   if not (torch.isfinite(lk).all() and torch.isfinite(uk).all()):
     fail(f"{label}: kernel output not finite")
@@ -250,12 +271,13 @@ def check_kernel(torch, args, kinds, label):
   return err, (uk, lk)
 
 
-def check_k2_tails(torch, args, kinds, label):
+def check_k2_tails(torch, args, kinds, label, against_twin=True):
   """K2 on the first TAIL_BATCHES worlds of args: each tail within
-  check_kernel's tiers of the twin and bitwise equal to the same worlds of
+  check_kernel's tiers of the twin (unless not `against_twin`: where the
+  whole batch was just held to it) and bitwise equal to the same worlds of
   the whole batch; and the whole batch launched twice, bitwise equal (the
   lanes of a world share its memory: a race would show as a difference).
-  Returns the max abs error against the twin."""
+  Returns the max abs error against the twin (0 without it)."""
   from raisimlib_torch.ops import contact as ct
   from raisimlib_torch.ops import gpu_contact as gc
 
@@ -267,7 +289,11 @@ def check_k2_tails(torch, args, kinds, label):
     fail(f"{label}: two K2 launches on the same inputs differ")
   err = 0.0
   for b in TAIL_BATCHES:
-    e, out = check_kernel(torch, [x[:b] for x in args], kinds, f"{label}, B={b}")
+    tail = [x[:b] for x in args]
+    if against_twin:
+      e, out = check_kernel(torch, tail, kinds, f"{label}, B={b}")
+    else:
+      e, out = 0.0, gc.solve_dynamics_batch(*tail, cfg)
     if not all(torch.equal(x, y[:b]) for x, y in zip(out, full)):
       fail(f"{label}, B={b}: the tail's worlds differ from the same worlds of "
            f"B={args[0].shape[0]}")
@@ -1749,6 +1775,385 @@ def run_ilqr(torch, gs, gc, _build, built, stream, il_step):
   return entry, rec
 
 
+# phases 38-41: scenes outside K1's class (as in the JAX package's _analyze),
+# on the K2 path (Scene.step_batch -> pipeline.step_batch -> K2): box-box,
+# capsule-capsule, the support-function pairs, sphere-cylinder, sphere-mesh,
+# a compound, wires, pins, compliant wires. The add_* functions take a World
+# of the port or of the JAX package (the calls are the same); k2_q0 gives a
+# scene's nominal q0 (the mixed drop's capsules are laid down by their
+# quaternions).
+TOWER_HE = ((0.25, 0.25, 0.12), (0.2, 0.2, 0.1), (0.15, 0.15, 0.08))
+TOWER_DT, PILE_DT, MIXED_DT, TRIO_DT = 0.002, 0.002, 0.002, 0.001
+# the pile: box k in cell (k % 2, k // 4, (k // 2) % 2) of a 2 x 2 x 2 grid,
+# pitch 0.31 m, so that the first 4 boxes are two stacks of two; half
+# extents 0.10-0.15 m, 1 kg each; the bottom layer 1 cm above the ground,
+# every gap at least 1 cm
+PILE_HE = ((0.15, 0.13, 0.12), (0.12, 0.15, 0.14), (0.10, 0.12, 0.11), (0.14, 0.11, 0.10),
+           (0.13, 0.14, 0.15), (0.11, 0.10, 0.13), (0.15, 0.12, 0.10), (0.12, 0.13, 0.12))
+PILE_PITCH = 0.31
+BOX_TOP = 0.4                   # the mixed drop's static box (0.5, 0.5, 0.2) at z 0.2
+# the wire pendulum, the pinned box and the compliant wire of the JAX
+# package's tests/test_constraints.py, 2 m apart in y so that no pair touches
+TRIO_WIRE = dict(anchor=(0.0, 0.0, 1.6), length=0.85)
+TRIO_PIN = dict(anchor=(0.0, 2.0, 1.0), corner=(-0.2, 0.0, 0.0))
+TRIO_SPRING = dict(anchor=(0.0, -2.0, 1.5), length=0.5, stiffness=200.0, damping=30.0)
+
+
+def _quat(axis, angle):
+  axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+  return np.r_[np.cos(angle / 2), np.sin(angle / 2) * axis]
+
+
+def add_box_tower(world):
+  """The three boxes of the JAX package's tests/test_boxbox.py stack, 1 kg
+  each, 2 mm apart, on the ground. Returns their rest heights."""
+  world.add_ground()
+  rest, z = [], 0.0
+  for i, he in enumerate(TOWER_HE):
+    z += he[2]
+    world.add_box(he, mass=1.0, pos=(0.005 * i, -0.003 * i, z + 0.002), name=f"b{i}")
+    rest.append(z)
+    z += he[2]
+  return rest
+
+
+def add_box_pile(world, n=8):
+  """n of the 8 boxes of the pile on the ground (PILE_HE, PILE_PITCH)."""
+  world.add_ground()
+  for k in range(n):
+    i, j, layer = k % 2, k // 4, (k // 2) % 2
+    he = PILE_HE[k]
+    z = 0.01 + he[2] if layer == 0 else 0.01 + 2 * max(h[2] for h in PILE_HE) + 0.01 + he[2]
+    world.add_box(he, mass=1.0, pos=((i - 0.5) * PILE_PITCH, (j - 0.5) * PILE_PITCH, z),
+                  name=f"p{k}")
+
+
+MIXED_PARTS = ("capsules", "cylinder", "cone", "rock", "dumbbell")
+
+
+def add_mixed_drop(world, parts=MIXED_PARTS):
+  """A static box (0.5, 0.5, 0.2) at z 0.2 on the ground and, dropped on
+  it (`parts`, each optional): two capsules (r 0.1, half-length 0.3) laid
+  across each other, 8 cm apart; an upright cylinder with a sphere over it,
+  a cone and the rock in the corners; a dumbbell compound of two spheres and
+  a capsule."""
+  world.add_ground()
+  world.add_box((0.5, 0.5, 0.2), 0.0, pos=(0.0, 0.0, 0.2), static=True)
+  if "capsules" in parts:
+    world.add_capsule(0.1, 0.3, 1.0, pos=(0.0, 0.0, BOX_TOP + 0.11), name="capsule_low")
+    world.add_capsule(0.1, 0.3, 1.0, pos=(0.0, 0.0, BOX_TOP + 0.36), name="capsule_high")
+  if "cylinder" in parts:
+    world.add_cylinder(0.1, 0.15, 1.0, pos=(0.33, -0.33, BOX_TOP + 0.16), name="cylinder")
+    world.add_sphere(0.08, 1.0, pos=(0.33, -0.33, BOX_TOP + 0.43), name="ball")
+  if "cone" in parts:
+    world.add_cone(0.12, 0.2, 1.0, pos=(0.33, 0.33, BOX_TOP + 0.06), name="cone")
+  if "rock" in parts:
+    world.add_mesh(rock_vertices(), 2.0, pos=(-0.33, -0.33, BOX_TOP + 0.09), name="rock")
+  if "dumbbell" in parts:
+    along_x = [[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [-1.0, 0.0, 0.0]]
+    world.add_compound([dict(type="sphere", params=[0.05], pos=(-0.1, 0.0, 0.0)),
+                        dict(type="sphere", params=[0.05], pos=(0.1, 0.0, 0.0)),
+                        dict(type="capsule", params=[0.025, 0.1], rot=along_x)],
+                       1.0, name="dumbbell", pos=(-0.33, 0.33, BOX_TOP + 0.06))
+  return parts
+
+
+def mixed_drop_q0(q_init, parts=MIXED_PARTS):
+  """The mixed drop's q0: the lower capsule along x, the upper along y."""
+  q = np.array(q_init, np.float64)
+  if "capsules" in parts:
+    q[3:7] = _quat((0.0, 1.0, 0.0), np.pi / 2)
+    q[10:14] = _quat((1.0, 0.0, 0.0), -np.pi / 2)
+  return q
+
+
+def add_constraint_trio(world):
+  """A sphere on a stiff wire from a world anchor, a box pinned at a corner
+  to the world, a sphere on a compliant wire (the JAX package's
+  tests/test_constraints.py scenes), 2 m apart."""
+  h = world.add_sphere(0.05, mass=1.0, pos=(0.6, 0.0, 1.0), name="wire_ball")
+  world.add_stiff_wire(-1, TRIO_WIRE["anchor"], h.body_start, (0.0, 0.0, 0.0),
+                       length=TRIO_WIRE["length"])
+  hb = world.add_box((0.2, 0.05, 0.05), mass=1.0, pos=(0.2, 2.0, 1.0), name="pinned_box")
+  world.add_pin(hb.body_start, TRIO_PIN["corner"], -1, TRIO_PIN["anchor"])
+  hc = world.add_sphere(0.05, mass=1.0, pos=(0.0, -2.0, 0.95), name="spring_ball")
+  world.add_compliant_wire(-1, TRIO_SPRING["anchor"], hc.body_start, (0.0, 0.0, 0.0),
+                           length=TRIO_SPRING["length"], stiffness=TRIO_SPRING["stiffness"],
+                           damping=TRIO_SPRING["damping"])
+
+
+K2_SCENES = {"tower": (add_box_tower, TOWER_DT), "pile": (add_box_pile, PILE_DT),
+             "mixed": (add_mixed_drop, MIXED_DT), "trio": (add_constraint_trio, TRIO_DT)}
+
+
+def k2_world(World, name, cut=None, **kw):
+  """The world of K2 scene `name` in the World class given (the port's or
+  the JAX package's; kw: its dtype and device), cut to `cut` (the pile's
+  box count, the mixed drop's parts; None: the whole scene). Returns
+  (world, what the add_* function returned)."""
+  add, dt = K2_SCENES[name]
+  world = World(dt=dt, **kw)
+  info = add(world) if cut is None else add(world, cut)
+  return world, info
+
+
+def k2_q0(name, q_init, info):
+  """Scene `name`'s nominal q0 (numpy) from its model's q_init."""
+  q0 = np.asarray(q_init, np.float64)
+  return mixed_drop_q0(q0, info) if name == "mixed" else q0
+
+
+def k2_scene(torch, name, cut=None, device=None, dtype=None):
+  """The port's Scene of K2 scene `name` (no joint limits: its bodies are
+  free), its q0 (numpy) and what the add_* function returned."""
+  from raisimlib_torch.world import World
+
+  world, info = k2_world(World, name, cut, dtype=dtype or torch.float32, device=device)
+  scene = world.compile(joint_limits=False)
+  return scene, k2_q0(name, scene.model.q_init.cpu().double().numpy(), info), info
+
+
+def k2_states(torch, scene, q0, B, seed, dxy=5e-3, dv=0.0):
+  """B states at q0, each free body moved by x, y offsets drawn within
+  +-dxy and given linear velocities within +-dv (uniform, from a seeded
+  CPU torch.Generator)."""
+  from raisimlib_torch.models.model import JointType
+
+  m = scene.model
+  g = torch.Generator().manual_seed(seed)
+  q = torch.tensor(q0, dtype=torch.float64).repeat(B, 1)
+  u = torch.zeros((B, m.nv), dtype=torch.float64)
+  for b in range(m.nb):
+    if JointType(m.joint_types[b]) == JointType.FREE:
+      qa, va = m.q_adr[b], m.v_adr[b]
+      q[:, qa:qa + 2] += dxy * (2.0 * torch.rand((B, 2), generator=g, dtype=torch.float64) - 1.0)
+      u[:, va + 3:va + 6] = dv * (2.0 * torch.rand((B, 3), generator=g, dtype=torch.float64)
+                                  - 1.0)
+  dt = dict(dtype=m.dtype, device=scene.device)
+  return scene.init_state(q=q.to(**dt), u=u.to(**dt))
+
+
+def k2_gates(torch, name, scene, qs, s_end, info):
+  """The scene's gates on the stored states `qs` (list of (step, q)) and the
+  end state; returns a dict of figures and a list of failures."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
+
+  q, u = s_end.q, s_end.u
+  figs, bad = {}, []
+  if not (torch.isfinite(q).all() and torch.isfinite(u).all()):
+    return figs, ["state not finite"]
+  nb = scene.model.nb
+  if name == "tower":
+    dz = max(float((q[:, 7 * i + 2] - z).abs().max()) for i, z in enumerate(info))
+    dxy = max(float(q[:, 7 * i:7 * i + 2].abs().max()) for i in range(nb))
+    figs.update(max_dz_from_rest=dz, max_abs_xy=dxy)
+    if dz >= 0.02 or dxy >= 0.08:
+      bad.append(f"a box left its rest height by {dz:.4f} m or slid to |x|,|y| = {dxy:.4f} m")
+  elif name == "pile":
+    deepest = 0.0
+    for _, qk in qs:
+      c = coll.collide(scene.geoms, scene.pairs, dynamics.fk(scene.model, qk))
+      deepest = max(deepest, float((c.depth * c.active).max()))
+    speed = max(float(u[:, 6 * i + 3:6 * i + 6].norm(dim=1).max()) for i in range(nb))
+    figs.update(deepest_active_contact=deepest, max_box_speed=speed)
+    if deepest > 0.01 or speed >= 0.1:
+      bad.append(f"an active contact {deepest:.4f} m deep or a box at {speed:.4f} m/s")
+  elif name == "mixed":
+    z_min = float(min(q[:, 7 * i + 2].min() for i in range(nb)))
+    figs.update(min_com_z=z_min)
+    if z_min < BOX_TOP - 0.01:
+      bad.append(f"a body at z {z_min:.4f} m, below the static box's top less 1 cm")
+  else:
+    anchor = torch.tensor(TRIO_WIRE["anchor"], dtype=q.dtype, device=q.device)
+    pin = torch.tensor(TRIO_PIN["anchor"], dtype=q.dtype, device=q.device)
+    corner = torch.tensor(TRIO_PIN["corner"], dtype=q.dtype, device=q.device)
+    from raisimlib_torch.ops import spatial as sp
+    wire_len = max(float((qk[:, 0:3] - anchor).norm(dim=1).max()) for _, qk in qs)
+    x_min = torch.stack([qk[:, 0] for _, qk in qs]).amin(0)
+    pin_err = max(float((qk[:, 7:10] + sp.quat_rotate(qk[:, 10:14], corner.expand(qk.shape[0], 3))
+                         - pin).norm(dim=1).max()) for _, qk in qs)
+    z_box = torch.stack([qk[:, 9] for _, qk in qs]).amin(0)
+    k, c, L = (TRIO_SPRING[x] for x in ("stiffness", "damping", "length"))
+    z_eq = TRIO_SPRING["anchor"][2] - (L + 9.81 / k)
+    spring_dz = float((q[:, 16] - z_eq).abs().max())
+    figs.update(max_wire_length=wire_len, max_min_wire_x=float(x_min.max()),
+                max_pin_error=pin_err, max_min_box_z=float(z_box.max()),
+                max_spring_dz=spring_dz)
+    if wire_len > TRIO_WIRE["length"] + 5e-3 or float(x_min.max()) >= -0.3:
+      bad.append(f"wire length {wire_len:.4f} m, or a sphere that never crossed x < -0.3")
+    if pin_err >= 2e-3 or float(z_box.max()) >= 0.92:
+      bad.append(f"pin error {pin_err:.2e} m, or a box that never dropped below 0.92")
+    if spring_dz >= 5e-3:
+      bad.append(f"the compliant sphere ends {spring_dz:.4f} m from z_eq {z_eq:.4f}")
+  return figs, bad
+
+
+# (phase, label, scene, worlds, steps, stored every n steps)
+K2_PHASES = ((38, "box tower", "tower", 4096, 1000, 100),
+             (39, "box pile", "pile", 1024, 750, 50),
+             (40, "mixed drop", "mixed", 4096, 500, 100),
+             (41, "constraints", "trio", 4096, 1000, 10))
+
+
+def time_once(torch, fn):
+  """ms of one call by CUDA events (for the plain twin, whose loops make a
+  repeat cost seconds)."""
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  stop = torch.cuda.Event(enable_timing=True)
+  start.record()
+  fn()
+  stop.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(stop)
+
+
+# a build of K2 that takes the device-memory layout at every shape
+# (MF_DEVICE_ROWS), registered by register_device_build, for phases 38-41
+MF_DEVICE_BUILD = "mf_solve_device_rows"
+
+
+def register_device_build(_build):
+  """Register MF_DEVICE_BUILD (built with the others by _build.build())."""
+  spec = _build.KERNELS["mf_solve"]
+  _build.KERNELS[MF_DEVICE_BUILD] = dict(source=spec["source"],
+                                         defines=spec["defines"] + ("-DMF_DEVICE_ROWS",),
+                                         symbols=spec["symbols"])
+
+
+def launch_mf(torch, gc, lib, ins, rows, cfg):
+  """One launch of the K2 build `lib` on kernel_inputs' tensors: (u, lam)."""
+  B, nc, _, nv = ins[0].shape
+  u = torch.empty((B, nv), dtype=torch.float32, device=ins[0].device)
+  lam = torch.empty((B, nc, 3), dtype=torch.float32, device=ins[0].device)
+  rc = lib.mf_solve_launch(*(x.data_ptr() for x in ins), rows.data_ptr(), u.data_ptr(),
+                           lam.data_ptr(), B, nc, nv, gc._used_rows(cfg.row_kinds), cfg.sweeps,
+                           cfg.n_grid, torch.cuda.current_stream().cuda_stream)
+  if rc != 0:
+    fail(f"K2 ({lib}) launch failed: cudaError {rc}")
+  return u, lam
+
+
+def run_k2_scenes(torch, gs, gc, card):
+  """Phases 38-41: each scene of K2_PHASES through Scene.step_batch (K2 once
+  a step, K1 never), its gates, K2 against its twin on the solver inputs of
+  three steps (the first, a third of the way, the last) and its tails and
+  relaunches bitwise on the last; K2's times alone and through its wrapper
+  beside its bound, the plain twin's, the K2 path's step; and, where the
+  rows are staged, the device-memory layout's build on the same inputs
+  (bitwise, and its time). Returns the kernels line's entries and the
+  records."""
+  from raisimlib_torch import _build
+  from raisimlib_torch.ops import pipeline
+
+  entries, recs = [], {}
+  for phase, label, name, B, steps, every in K2_PHASES:
+    t_phase = time.perf_counter()
+    with torch.inference_mode():
+      scene, q0, info = k2_scene(torch, name)
+      # the trio's bodies start where their wires and pin put them, with
+      # velocities; the others' positions are moved
+      s = (k2_states(torch, scene, q0, B, seed=phase, dxy=0.0, dv=0.01) if name == "trio"
+           else k2_states(torch, scene, q0, B, seed=phase))
+      kinds = pipeline.scene_row_kinds(scene)
+      nc, nv = len(kinds), scene.model.nv
+      nrow = gc._used_rows(kinds)
+      wpb, smem, layout = gc.block_shape(nc, nv, kinds, 32)
+      rows_b = 4 * 2 * nrow * nv
+      note(f"phase {phase}: {label} on the K2 path: B={B}, nc={nc}, nv={nv}, kinds "
+           f"{ {k: kinds.count(k) for k in set(kinds)} }; the world's J and W rows "
+           f"{rows_b} B, {smem // wpb} B of shared memory a world in the {layout} layout "
+           f"({wpb} world(s) a block)")
+      checks = {0, steps // 3, steps - 1}
+      saved, qs = {}, []
+      scene.step_batch(s)                            # warm-up
+      torch.cuda.synchronize()
+      reset_counts(gc, gs)
+      t0 = time.perf_counter()
+      for k in range(steps):
+        if k in checks:
+          saved[k] = (s.q.clone(), s.u.clone())
+        if k % every == 0:
+          qs.append((k, s.q.clone()))
+        s = scene.step_batch(s)
+      torch.cuda.synchronize()
+      t_run = time.perf_counter() - t0
+      counts = read_counts(gc, gs)
+    if counts != (steps, 0):
+      fail(f"{label}: the K2 path launched (K2, K1) {counts} times for {steps} steps")
+    with torch.inference_mode():
+      figs, bad = k2_gates(torch, name, scene, qs, s, info)
+    note(f"  {steps} steps in {t_run:.2f} s: {1e3 * t_run / steps:.3f} ms a step, "
+         f"world-steps/s {B * steps / t_run:.0f}, launches K2 {counts[0]} K1 {counts[1]}; "
+         f"gates: {figs}")
+    if bad:
+      fail(f"{label}: " + "; ".join(bad))
+    from raisimlib_torch.ops.integrator import State
+
+    errs = []
+    with torch.inference_mode():
+      for k in sorted(saved):
+        sk = State(q=saved[k][0], u=saved[k][1], t=s.t)
+        args, cfg = pipeline.solver_inputs(scene, sk, torch.zeros_like(sk.u))
+        args = list(args)
+        plain = []
+        plain_ms = time_once(torch, lambda: plain.append(gc._mf_plain(*args, cfg)))
+        errs.append(check_kernel(torch, args, cfg.row_kinds, f"{label}, step {k}",
+                                 plain_out=plain[0])[0])
+      check_k2_tails(torch, args, cfg.row_kinds, f"{label}, step {max(saved)}", False)
+      ins, rows_t = gc.kernel_inputs(*args, cfg)
+      reps = 20 if B * nc <= 4096 * 64 else 5
+      ms = time_cuda(torch, lambda: gc.solve_dynamics_batch(*args, cfg), reps)
+      kernel_ms = time_cuda(torch, lambda: gc.launch_kernel(ins, rows_t, cfg), reps)
+      # the same solve in the device-memory layout (a build that takes it at
+      # every shape): the same bits where both fit, and its time beside
+      other = {}
+      if layout == "shared":
+        lib = _build.load(MF_DEVICE_BUILD)
+        out = launch_mf(torch, gc, lib, ins, rows_t, cfg)
+        torch.cuda.synchronize()
+        ref = gc.launch_kernel(ins, rows_t, cfg)
+        bitwise = all(torch.equal(a, b) for a, b in zip(out, ref))
+        errs.append(check_kernel(torch, args, cfg.row_kinds, f"{label}, the device layout",
+                                 kernel_out=out, plain_out=plain[0])[0])
+        other = dict(device_layout_kernel_ms=time_cuda(
+            torch, lambda: launch_mf(torch, gc, lib, ins, rows_t, cfg), reps),
+            device_layout_bitwise=bitwise)
+        note(f"  the device-memory layout on the same inputs: "
+             f"{'bitwise equal' if bitwise else 'not bitwise equal, within the tiers'}, "
+             f"{other['device_layout_kernel_ms']:.3f} ms alone")
+      step_ms = time_cuda(torch, lambda: scene.step_batch(sk), 5)
+    nbytes, nops = gc.mf_solve_cost(B, nc, nv, cfg.row_kinds, cfg.sweeps, cfg.n_grid)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, nops / H100_F32_OPS_PER_S * 1e3
+    note(f"  K2 at B={B}: wrapper {ms:.3f} ms (kernel alone {kernel_ms:.3f} ms, the {layout} "
+         f"layout), plain twin {plain_ms:.1f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+         f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.3f} GFLOP -> {t_ops:.4f} "
+         f"ms); the K2 path's step {step_ms:.3f} ms; phase {time.perf_counter() - t_phase:.1f} "
+         f"s; card: {card}")
+    entries.append({
+        "name": f"mf_solve (K2) at the {label}: nc={nc}, nv={nv}, the {layout} layout",
+        "route": "cuda",
+        "source": "raisimlib_torch/csrc/mf_solve.cu",
+        "body": "raisimlib_torch/csrc/mf_solve.cuh",
+        "replaces": "raisimlib_tpu/ops/pallas_contact.py:164",
+        "launches": counts[0],
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "kernel_only_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "batch": B, "nc": nc, "nv": nv, "layout": layout, "worlds_per_block": wpb,
+        "smem_block_bytes": smem, "row_bytes_per_world": rows_b,
+        "step_ms": step_ms, "world_steps_per_s": B * steps / t_run, **other,
+    })
+    recs[name] = dict(figs, steps=steps, batch=B, seconds=t_run,
+                      phase_seconds=time.perf_counter() - t_phase)
+  return entries, recs
+
+
 def main():
   import torch
 
@@ -1820,6 +2225,7 @@ def main():
   same_source = {n: {kern.name: "phase 7's flat scene", kern_trot.name: "phase 15's trot scene",
                      kern_b.name: "phase 18's stack"}.get(st.kernel.name, "no earlier scene")
                  for n, st in scen_steps.items()}
+  register_device_build(_build)                      # phases 38-41
   t0 = time.perf_counter()
   built = _build.build()
   note(f"build: {time.perf_counter() - t0:.2f} s in parallel; "
@@ -1853,14 +2259,20 @@ def main():
                    f"nc=48 nv={nv}, {wpb} world(s) a block of {wpb * _build.MF_LANES} threads")
     anymal_err = max(anymal_err, check_k2_tails(torch, list(args), cfg.row_kinds,
                                                 "ANYmal factors"))
+    # one world's rows past a block's shared memory: the device-memory layout
+    wpb, _, layout = gc.block_shape(100, 304, ("cone",) * 100, 32)
+    if layout != "device":
+      fail(f"K2 took the {layout} layout at nc=100 nv=304, whose rows pass 227 KB")
+    check_kernel(torch, random_problem(torch, 67, 100, seed=11), (),
+                 f"nc=100 nv=304, the device layout, {wpb} world(s) a block")
     n0 = gc.solve_dynamics_batch.launches
     try:
-      gc.solve_dynamics_batch(*random_problem(torch, 2, 100, seed=11, nv=128), ct.SolverConfig())
-      fail("K2 launched nc=100 nv=128, whose world does not fit a block")
+      gc.solve_dynamics_batch(*random_problem(torch, 2, 4200, seed=12, nv=8), ct.SolverConfig())
+      fail("K2 launched nc=4200 nv=8, whose small arrays do not fit a block")
     except ValueError as e:
       if gc.solve_dynamics_batch.launches != n0:
         fail("K2 counted a launch it refused")
-      note(f"  nc=100 nv=128 refused: {e}")
+      note(f"  nc=4200 nv=8 refused: {e}")
 
   # ---- 3. K2 rollouts ------------------------------------------------------
   B, H = 16384, 50
@@ -1908,7 +2320,7 @@ def main():
            f"({nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {nops / 1e9:.3f} GFLOP -> "
            f"{t_ops:.4f} ms)")
     step_ms = time_cuda(torch, lambda: scene.step_batch(s0, pd_target=pd), 5)
-  wpb, smem = gc.block_shape(len(kinds_any), scene.model.nv, cfg.row_kinds, cfg.n_grid)
+  wpb, smem, _ = gc.block_shape(len(kinds_any), scene.model.nv, cfg.row_kinds, cfg.n_grid)
   k2_ptxas = dict(_build.ptxas_figures("mf_solve"), smem_block_bytes=smem,
                   worlds_per_block=wpb, lanes=_build.MF_LANES)
   note(f"  whole K2-path step {step_ms:.3f} ms at B={B}; K2 build: {k2_ptxas}")
@@ -2274,6 +2686,7 @@ def main():
   k1_atlas, examples, ex_launches = run_entry_points(
       torch, gs, gc, _build, built, stream, (at_scene, at_q0, at_step), scen_steps, same_source)
   k1_ilqr, ilqr_rec = run_ilqr(torch, gs, gc, _build, built, stream, il_step)
+  k2_scenes, k2_recs = run_k2_scenes(torch, gs, gc, card)
   k1["launches_balance_example"] = ex_launches["anymal_balance"]
   k1c["launches_trot_example"] = ex_launches["anymal_trot_heightmap"]
   k1b["launches_stack_example"] = ex_launches["sphere_box_stack"]
@@ -2297,9 +2710,13 @@ def main():
        f"{il['fd_order_1']['solves_per_s']:.2f} (fd_order 1), {il['jvp']['solves_per_s']:.3f} "
        f"(exact, E={il['jvp']['n_env']}); mean cost ratios {il['fd_order_2']['cost_ratio']:.4f}, "
        f"{il['fd_order_1']['cost_ratio']:.4f}, {il['jvp']['cost_ratio']:.4f}")
+  note("  K2 scenes: " + "; ".join(
+      f"{n} {r['batch']} x {r['steps']} steps in {r['seconds']:.2f} s "
+      f"({r['batch'] * r['steps'] / r['seconds']:.0f} world-steps/s)" for n, r in k2_recs.items()))
   note(f"total {time.perf_counter() - t_start:.1f} s")
   note(f"card: {card}")
-  print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes, k1_atlas, k1_ilqr]}), flush=True)
+  print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes, k1_atlas, k1_ilqr] + k2_scenes}),
+        flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

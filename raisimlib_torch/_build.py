@@ -36,7 +36,7 @@ KERNELS = {
         source=os.path.join(CSRC, "mf_solve.cu"),
         defines=(f"-DMF_LANES={MF_LANES}",),
         symbols={"mf_solve_launch": [_P] * 9 + [_I] * 6 + [_P],
-                 "mf_solve_block": [_I] * 4 + [_P]},
+                 "mf_solve_block": [_I] * 4 + [_P, _P]},
     ),
 }
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -62,9 +62,11 @@ def scene_from_numpy(arrays: dict, static: dict, device=None, dtype=None) -> Sce
       offset_pos=t("geom_offset_pos"), offset_rot=t("geom_offset_rot"),
       mesh_verts=t("geom_mesh_verts") if "geom_mesh_verts" in arrays else None,
       mesh_vcount=tuple(int(n) for n in static.get("geom_mesh_vcount", ())))
-  tabs = cs.ConstraintTables(*(tuple(f) for f in static["constraints"]))
-  if tabs.wires or tabs.pins or tabs.compliant:
-    raise cs._unported("wires and pins")
+  lim = [tuple(f) for f in static["constraints"][:4]]
+  wires, pins, compliant = static["constraints"][4:]
+  tabs = cs.ConstraintTables(*lim, tuple(cs.WireSpec(*w) for w in wires),
+                             tuple(cs.PinSpec(*p) for p in pins),
+                             tuple(cs.CompliantWireSpec(*c) for c in compliant))
   field = None
   if "field_heights" in arrays:
     size_x, size_y = (float(x) for x in static["field_size"])

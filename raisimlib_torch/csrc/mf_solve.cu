@@ -1,5 +1,6 @@
 // Matrix-free Gauss-Seidel contact-dynamics solve (K2): MF_LANES lanes of a
-// warp per world, the world's rows staged once in shared memory.
+// warp per world, the world's rows staged once in shared memory where they
+// fit, read from device memory where they do not.
 //
 // Replaces the TPU kernel raisimlib_tpu/ops/pallas_contact.py `_mf_kernel`
 // (pallas_call in `_mf_impl`, public entry `solve_dynamics_batch`), with the
@@ -36,8 +37,14 @@
 // Shared memory is dynamic, sized at launch from nc, nv, the rows the kinds
 // use and n_grid (mf_layout); where a block's worlds would need more than the
 // 227 KB a block can hold, the launch gives the block fewer worlds, a partial
-// warp of wpb x MF_LANES threads (mf_block), and refuses a shape of which one
-// world does not fit.
+// warp of wpb x MF_LANES threads (mf_block). Where one world's rows do not
+// fit (4 (2 nrow nv + 14 nc) bytes and the grid's: 8 free boxes on the
+// ground, nc = 316 and nv = 48, need about 382 KB), it launches the
+// device-memory layout instead (mf_solve_kernel<false>): the J and W rows
+// stay in the inputs and the lanes read them there (__ldg) every sweep, with
+// the same expressions as the staged layout (the same bits); the small
+// arrays (vf, z, lambda, Gii, c0, mu, act, E, trig) stay in shared memory. It
+// refuses only a shape of which one world's small arrays do not fit.
 //
 // Lane regions: FS_LANES_BEGIN ... FS_LANES_END sync the block's threads
 // (one warp, or its first wpb x MF_LANES lanes) on both sides. Every world of
@@ -76,6 +83,7 @@ static_assert(32 % MF_LANES == 0, "a world's lanes lie in one warp");
 
 namespace {
 
+template <bool kStaged>
 __global__ void __launch_bounds__(32)
 mf_solve_kernel(const float* __restrict__ Jr, const float* __restrict__ Wt,
                 const float* __restrict__ vf, const float* __restrict__ bias,
@@ -84,25 +92,46 @@ mf_solve_kernel(const float* __restrict__ Jr, const float* __restrict__ Wt,
                 float* __restrict__ lam, int B, int nc, int nv, int nrow, int sweeps,
                 rsl::ConeConsts cc, int wpb) {
   extern __shared__ float mf_smem[];
-  rsl::mf_slot(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow, sweeps, cc, mf_smem,
-               blockIdx.x, wpb, threadIdx.x / MF_LANES, threadIdx.x % MF_LANES);
+  rsl::mf_slot<kStaged>(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow, sweeps, cc,
+                        mf_smem, blockIdx.x, wpb, threadIdx.x / MF_LANES,
+                        threadIdx.x % MF_LANES);
+}
+
+template <bool kStaged>
+int mf_launch(const void* Jr, const void* Wt, const void* vf, const void* bias,
+              const void* mu, const void* act, const void* rows, void* u, void* lam, int B,
+              int nc, int nv, int nrow, int sweeps, int n_grid, int wpb, int smem,
+              cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mf_solve_kernel<kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (B + wpb - 1) / wpb;
+  mf_solve_kernel<kStaged><<<blocks, wpb * MF_LANES, smem, stream>>>(
+      (const float*)Jr, (const float*)Wt, (const float*)vf, (const float*)bias,
+      (const float*)mu, (const float*)act, (const int*)rows, (float*)u, (float*)lam, B, nc,
+      nv, nrow, sweeps, rsl::mf_cone_consts(n_grid), wpb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Worlds per block at these shapes (0 where one world does not fit) and, in
-// *bytes, the block's shared memory: what mf_solve_launch launches.
-extern "C" int mf_solve_block(int nc, int nv, int nrow, int n_grid, int* bytes) {
-  return rsl::mf_block(nc, nv, nrow, n_grid, bytes);
+// Worlds per block at these shapes (0 where one world's small arrays do not
+// fit), in *bytes the block's shared memory and in *staged the layout (1: the
+// rows staged in shared memory, 0: read from device memory): what
+// mf_solve_launch launches.
+extern "C" int mf_solve_block(int nc, int nv, int nrow, int n_grid, int* bytes, int* staged) {
+  return rsl::mf_block(nc, nv, nrow, n_grid, bytes, staged);
 }
 
 // Plain C entry point for ctypes. `rows` is the int table of mf_world (the
 // kinds, each solver row's first staged row, and the input row of each of
-// the nrow staged rows). Launches ceil(B / wpb) blocks of wpb x MF_LANES
-// threads (wpb from mf_block) on `stream` and returns cudaGetLastError() (0 =
+// the nrow used rows). Launches ceil(B / wpb) blocks of wpb x MF_LANES
+// threads (wpb and the layout from mf_block) on `stream` and returns cudaGetLastError() (0 =
 // launched), so that a refused launch is reported instead of silently
-// skipped; cudaErrorInvalidValue where one world's shared arrays do not fit a
-// block.
+// skipped; cudaErrorInvalidValue where one world's small shared arrays do not
+// fit a block.
 extern "C" int mf_solve_launch(const void* Jr, const void* Wt, const void* vf,
                                const void* bias, const void* mu, const void* act,
                                const void* rows, void* u, void* lam, int B, int nc,
@@ -110,18 +139,11 @@ extern "C" int mf_solve_launch(const void* Jr, const void* Wt, const void* vf,
   if (B < 1 || nc < 1 || nv < 1 || nrow < nc || nrow > 3 * nc || sweeps < 0 || n_grid < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  int smem = 0;
-  const int wpb = rsl::mf_block(nc, nv, nrow, n_grid, &smem);
+  int smem = 0, staged = 1;
+  const int wpb = rsl::mf_block(nc, nv, nrow, n_grid, &smem, &staged);
   if (wpb < 1) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mf_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (B + wpb - 1) / wpb;
-  mf_solve_kernel<<<blocks, wpb * MF_LANES, smem, (cudaStream_t)stream>>>(
-      (const float*)Jr, (const float*)Wt, (const float*)vf, (const float*)bias,
-      (const float*)mu, (const float*)act, (const int*)rows, (float*)u, (float*)lam, B, nc,
-      nv, nrow, sweeps, rsl::mf_cone_consts(n_grid), wpb);
-  return (int)cudaGetLastError();
+  return staged ? mf_launch<true>(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow,
+                                  sweeps, n_grid, wpb, smem, (cudaStream_t)stream)
+                : mf_launch<false>(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow,
+                                   sweeps, n_grid, wpb, smem, (cudaStream_t)stream);
 }

@@ -33,21 +33,23 @@ constexpr int kMfBilateral = 2;
 
 // Offsets (floats) of one world's shared arrays, in order: js (J rows) and
 // ws (W rows), nrow x nv each, only the rows the kinds use (3 of a cone or
-// bilateral row, the third of a lin row); vf (nv); z (nv); lam (3 nc); gii
-// (6 nc: 00, 01, 02, 11, 12, 22); c0 (3 nc); mu and act (nc each); E, the
-// cone solve's energies (max(n_grid, 5)); trig, the grid's sines and cosines
-// (2 n_grid).
+// bilateral row, the third of a lin row), present in the staged layout only;
+// vf (nv); z (nv); lam (3 nc); gii (6 nc: 00, 01, 02, 11, 12, 22); c0 (3 nc);
+// mu and act (nc each); E, the cone solve's energies (max(n_grid, 5)); trig,
+// the grid's sines and cosines (2 n_grid).
 struct MfLayout {
   int js, ws, vf, z, lam, gii, c0, mu, act, E, trig, total;
 };
 
-__host__ __device__ inline MfLayout mf_layout(int nc, int nv, int nrow, int n_grid) {
+__host__ __device__ inline MfLayout mf_layout(int nc, int nv, int nrow, int n_grid,
+                                              bool staged) {
+  const int rows = staged ? nrow * nv : 0;
   MfLayout o;
   int off = 0;
   o.js = off;
-  off += nrow * nv;
+  off += rows;
   o.ws = off;
-  off += nrow * nv;
+  off += rows;
   o.vf = off;
   off += nv;
   o.z = off;
@@ -73,16 +75,43 @@ __host__ __device__ inline MfLayout mf_layout(int nc, int nv, int nrow, int n_gr
 // The most shared memory one block may hold on an H100 (227 KB).
 constexpr int kMfSmemBlockLimit = 232448;
 
-// Worlds per block at these shapes: a one-warp block of 32 / FS_LANES
-// worlds, or, where their shared arrays would pass kMfSmemBlockLimit, as many
-// as fit (a partial warp of wpb x FS_LANES threads); 0 where one world does
-// not fit. *bytes gets the block's shared memory (dynamic, in bytes).
-__host__ __device__ inline int mf_block(int nc, int nv, int nrow, int n_grid, int* bytes) {
-  const int per_world = (int)sizeof(float) * mf_layout(nc, nv, nrow, n_grid).total;
-  int wpb = kMfSmemBlockLimit / per_world;
+// Worlds per block at these shapes, and the layout (*staged): the staged
+// layout (the world's used J and W rows in shared memory) in a one-warp block
+// of 32 / FS_LANES worlds, or, where their shared arrays would pass
+// kMfSmemBlockLimit, as many as fit (a partial warp of wpb x FS_LANES
+// threads); where one world's rows do not fit, the device-memory layout (J
+// and W read from the inputs each sweep, the small arrays in shared memory)
+// at 32 / FS_LANES worlds, or as many as fit; 0 where one world's small
+// arrays do not fit. *bytes gets the block's shared memory (dynamic, in
+// bytes). Built with MF_DEVICE_ROWS, the device-memory layout is taken
+// whenever it fits (for comparisons of the two).
+__host__ __device__ inline int mf_block(int nc, int nv, int nrow, int n_grid, int* bytes,
+                                        int* staged) {
+#ifdef MF_DEVICE_ROWS
+  int layout = 0;
+#else
+  int layout = 1;
+#endif
+  int wpb = 0, per_world = 0;
+  for (; layout >= 0 && wpb < 1; --layout) {
+    per_world = (int)sizeof(float) * mf_layout(nc, nv, nrow, n_grid, layout == 1).total;
+    wpb = kMfSmemBlockLimit / per_world;
+    *staged = layout;
+  }
   if (wpb > 32 / FS_LANES) wpb = 32 / FS_LANES;
   *bytes = wpb * per_world;
   return wpb;
+}
+
+// A row entry at p: a plain load from shared memory (staged), a read-only
+// load from device memory otherwise.
+template <bool kStaged>
+__device__ __forceinline__ float mf_ld(const float* p) {
+  if constexpr (kStaged) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
 }
 
 // The angular constants of an n_grid-point search, computed in double and
@@ -104,10 +133,14 @@ constexpr int kMfStageBatch = 8;
 
 // One world. Jr, Wt (nc, 3, nv), vf (nv), bias (nc, 3), mu, act (nc) are the
 // world's rows of the batch-first inputs; rows (2 nc + nrow ints) holds the
-// row kinds, then each solver row's first slot in the staged arrays, then
-// each staged row's row in Jr and Wt (0 to 3 nc - 1); u (nv) and lam (nc, 3)
+// row kinds, then each solver row's first slot among the used rows, then
+// each used row's row in Jr and Wt (0 to 3 nc - 1); u (nv) and lam (nc, 3)
 // are null where the world stores nothing (a world past the batch). smem is
-// the world's slice of shared memory (mf_layout).
+// the world's slice of shared memory (mf_layout). kStaged: the used J and W
+// rows are staged in shared memory once; otherwise they are read from Jr and
+// Wt wherever the staged layout reads its copy, so that both layouts give the
+// same bits.
+template <bool kStaged>
 __device__ __forceinline__ void mf_world(
     const float* __restrict__ Jr, const float* __restrict__ Wt,
     const float* __restrict__ vf, const float* __restrict__ bias,
@@ -115,7 +148,7 @@ __device__ __forceinline__ void mf_world(
     const int* __restrict__ rows, float* __restrict__ u, float* __restrict__ lam,
     const int nc, const int nv, const int nrow, const int sweeps, const ConeConsts& cc,
     float* smem, const int fs_lane) {
-  const MfLayout L = mf_layout(nc, nv, nrow, cc.n_grid);
+  const MfLayout L = mf_layout(nc, nv, nrow, cc.n_grid, kStaged);
   float* const js = smem + L.js;
   float* const ws = smem + L.ws;
   float* const vfs = smem + L.vf;
@@ -129,20 +162,24 @@ __device__ __forceinline__ void mf_world(
   const int* const slot = rows + nc;
   const int* const src = rows + 2 * nc;
   // the first used J (or W) row of solver row i: a lin row's third; the
-  // others follow nv floats apart
-#define MF_J(i) (js + (size_t)__ldg(slot + (i)) * nv)
-#define MF_W(i) (ws + (size_t)__ldg(slot + (i)) * nv)
+  // others follow nv floats apart; in shared memory (staged) or in the inputs
+#define MF_J(i) (kStaged ? (const float*)js + (size_t)__ldg(slot + (i)) * nv \
+                         : Jr + (size_t)__ldg(src + __ldg(slot + (i))) * nv)
+#define MF_W(i) (kStaged ? (const float*)ws + (size_t)__ldg(slot + (i)) * nv \
+                         : Wt + (size_t)__ldg(src + __ldg(slot + (i))) * nv)
+#define MF_LD(p) mf_ld<kStaged>(p)
 
-  // ---- the world's rows into shared memory, read once; z and lambda zeroed.
-  // Item t of the nrow x nv staged floats is entry k of staged row p; lane l
-  // takes t = l (mod FS_LANES), kMfStageBatch items at a time.
+  // ---- the world's rows into shared memory, read once (staged layout); z
+  // and lambda zeroed. Item t of the nrow x nv staged floats is entry k of
+  // staged row p; lane l takes t = l (mod FS_LANES), kMfStageBatch items at a
+  // time.
   FS_LANES_BEGIN
   int p = 0, k = l;
   while (k >= nv) {
     k -= nv;
     ++p;
   }
-  for (int t0 = l; t0 < nrow * nv; t0 += kMfStageBatch * FS_LANES) {
+  for (int t0 = l; kStaged && t0 < nrow * nv; t0 += kMfStageBatch * FS_LANES) {
     size_t from[kMfStageBatch];
     float wv[kMfStageBatch], jv[kMfStageBatch];
 #pragma unroll
@@ -191,7 +228,7 @@ __device__ __forceinline__ void mf_world(
         const float* const Ja = lin ? J : J + a * nv;
         const float* const Wc = MF_W(i) + (lin ? 0 : c * nv);
 #pragma unroll 8
-        for (int k = 0; k < nv; ++k) acc += Ja[k] * Wc[k];
+        for (int k = 0; k < nv; ++k) acc += MF_LD(Ja + k) * MF_LD(Wc + k);
       }
       gii[6 * i + e] = acc;
     } else {
@@ -202,7 +239,7 @@ __device__ __forceinline__ void mf_world(
         const float* const Ja = lin ? J : J + a * nv;
         float acc = 0.0f;
 #pragma unroll 8
-        for (int k = 0; k < nv; ++k) acc += Ja[k] * vfs[k];
+        for (int k = 0; k < nv; ++k) acc += MF_LD(Ja + k) * vfs[k];
         ci0[3 * i + a] = acc - __ldg(bias + 3 * i + a);
       }
     }
@@ -221,14 +258,14 @@ __device__ __forceinline__ void mf_world(
         const float li2 = lm[3 * i + 2];
         float jz = 0.0f;
 #pragma unroll 8
-        for (int k = 0; k < nv; ++k) jz += J[k] * z[k];
+        for (int k = 0; k < nv; ++k) jz += MF_LD(J + k) * z[k];
         const float g22 = g[5];
         const float c2 = ci0[3 * i + 2] + jz - g22 * li2;
         const float x = -c2 / (g22 + 1e-20f);
         const float ln2 = (x != x ? x : (x > 0.0f ? x : 0.0f)) * ai;
         const float d2 = ln2 - li2;
         FS_LANES_BEGIN
-        for (int k = l; k < nv; k += FS_LANES) z[k] += W[k] * d2;
+        for (int k = l; k < nv; k += FS_LANES) z[k] += MF_LD(W + k) * d2;
         if (l == 0) lm[3 * i + 2] = ln2;
         FS_LANES_END
         continue;
@@ -240,9 +277,9 @@ __device__ __forceinline__ void mf_world(
 #pragma unroll 8
       for (int k = 0; k < nv; ++k) {
         const float zk = z[k];
-        jz0 += J[k] * zk;
-        jz1 += J1[k] * zk;
-        jz2 += J2[k] * zk;
+        jz0 += MF_LD(J + k) * zk;
+        jz1 += MF_LD(J1 + k) * zk;
+        jz2 += MF_LD(J2 + k) * zk;
       }
       float gr[6];                    // gii is shared: read it once, before the syncs
 #pragma unroll
@@ -261,9 +298,9 @@ __device__ __forceinline__ void mf_world(
       const float d0 = la0 - li0, d1 = la1 - li1, d2 = la2 - li2;
       FS_LANES_BEGIN
       for (int k = l; k < nv; k += FS_LANES) {
-        float dz = W[k] * d0;
-        dz = dz + W[nv + k] * d1;
-        dz = dz + W[2 * nv + k] * d2;
+        float dz = MF_LD(W + k) * d0;
+        dz = dz + MF_LD(W + nv + k) * d1;
+        dz = dz + MF_LD(W + 2 * nv + k) * d2;
         z[k] += dz;
       }
       if (l == 0) {
@@ -276,6 +313,7 @@ __device__ __forceinline__ void mf_world(
   }
 #undef MF_J
 #undef MF_W
+#undef MF_LD
 
   // ---- stores, each entry by one lane (the region is passed by every world
   // of the warp, a world that stores nothing included)
@@ -288,7 +326,9 @@ __device__ __forceinline__ void mf_world(
 }
 
 // World slot w (of wpb) of block blk: the world b = blk wpb + w, or, past the
-// batch, world B - 1, computed alike and stored nowhere.
+// batch, world B - 1, computed alike and stored nowhere. The world's offsets
+// into the inputs are size_t (B nc 3 nv passes 2^31 at large batches).
+template <bool kStaged>
 __device__ __forceinline__ void mf_slot(
     const float* __restrict__ Jr, const float* __restrict__ Wt,
     const float* __restrict__ vf, const float* __restrict__ bias,
@@ -301,8 +341,8 @@ __device__ __forceinline__ void mf_slot(
   const size_t bc = (size_t)(b < B ? b : B - 1);
   const bool store = b < B;
   const size_t nr = (size_t)3 * nc * nv;
-  const MfLayout L = mf_layout(nc, nv, nrow, cc.n_grid);
-  mf_world(Jr + bc * nr, Wt + bc * nr, vf + bc * nv, bias + bc * 3 * nc, mu + bc * nc,
+  const MfLayout L = mf_layout(nc, nv, nrow, cc.n_grid, kStaged);
+  mf_world<kStaged>(Jr + bc * nr, Wt + bc * nr, vf + bc * nv, bias + bc * 3 * nc, mu + bc * nc,
            act + bc * nc, rows, store ? u + bc * nv : nullptr,
            store ? lam + bc * 3 * nc : nullptr, nc, nv, nrow, sweeps, cc,
            smem + (size_t)w * L.total, fs_lane);

@@ -133,6 +133,22 @@ def point_jacobian(model: RobotModel, kin: KinData, body: int, pt_w):
   return (cols * mask[:, None]).transpose(-1, -2)
 
 
+def frame_jacobian(model: RobotModel, kin: KinData, body: int, pt_w):
+  """(B, 6, nv) world-frame spatial Jacobian [angular; linear] at the world
+  point pt_w (B, 3) of `body` (static)."""
+  mask = torch.as_tensor(ancestor_dof_mask(model)[body], dtype=pt_w.dtype,
+                         device=pt_w.device)[:, None]
+  ang = kin.S_w[..., :3]
+  lin = kin.S_w[..., 3:] + sp.cross(ang, pt_w.unsqueeze(-2))
+  return torch.cat([(ang * mask).transpose(-1, -2), (lin * mask).transpose(-1, -2)], -2)
+
+
+def point_velocity(kin: KinData, body: int, pt_w):
+  """(B, 3) world-frame linear velocity of the world point pt_w (B, 3)
+  rigidly attached to `body`."""
+  return kin.vel6[:, body, 3:] + sp.cross(kin.vel6[:, body, :3], pt_w)
+
+
 def rnea(model: RobotModel, q, u, qdd, gravity, f_ext_w=None):
   """Recursive Newton-Euler. `f_ext_w`: optional (B, nb, 6) world-frame
   spatial forces at the world origin, one per body."""

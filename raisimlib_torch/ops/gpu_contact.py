@@ -10,7 +10,8 @@ rows of J M^-1, vf (B,nv), bias (B,nc,3), mu / active (B,nc):
   * `solve_dynamics_batch` — the public entry. On a CUDA tensor it launches
     the hand-written kernel csrc/mf_solve.cu (which replaces the TPU kernel
     `_mf_kernel`: `_build.MF_LANES` lanes of a warp per world, the world's
-    rows staged in shared memory, with the lane-split cone solve of
+    rows staged in shared memory, or read from device memory where they do
+    not fit a block, with the lane-split cone solve of
     csrc/cone_solve.cuh, which replaces `_cone_solve_vec`) on the
     batch-first tensors as they are (`kernel_inputs`, `launch_kernel`,
     `block_shape`); on a CPU tensor it runs `_mf_plain`. It is a
@@ -192,14 +193,17 @@ def _used_rows(kinds: tuple) -> int:
 
 
 def block_shape(nc: int, nv: int, kinds: tuple, n_grid: int):
-  """(worlds per block, shared bytes per block) that csrc/mf_solve.cu
-  launches at these shapes (its `mf_block`): a one-warp block of 32 //
-  `_build.MF_LANES` worlds, or as many as fit 227 KB of shared memory (a
-  partial warp); worlds 0 where one world does not fit. Loads the kernel."""
-  nbytes = ctypes.c_int(0)
+  """(worlds per block, shared bytes per block, layout) that
+  csrc/mf_solve.cu launches at these shapes (its `mf_block`): a one-warp
+  block of 32 // `_build.MF_LANES` worlds, or as many as fit 227 KB of
+  shared memory (a partial warp); the layout "shared" (the world's J and W
+  rows staged in shared memory) where one world's rows fit, else "device"
+  (the rows read from device memory every sweep); worlds 0 where not even
+  one world's small arrays fit. Loads the kernel."""
+  nbytes, staged = ctypes.c_int(0), ctypes.c_int(0)
   wpb = _build.load("mf_solve").mf_solve_block(nc, nv, _used_rows(kinds), n_grid,
-                                              ctypes.byref(nbytes))
-  return wpb, nbytes.value
+                                              ctypes.byref(nbytes), ctypes.byref(staged))
+  return wpb, nbytes.value, "shared" if staged.value else "device"
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,8 +244,9 @@ def kernel_inputs(Jr, Wt, vf, bias, mu, active, config: ct.SolverConfig):
 
 def launch_kernel(ins, rows, config: ct.SolverConfig):
   """Launch csrc/mf_solve.cu on the inputs from `kernel_inputs`; returns (u
-  (B, nv), lam (B, nc, 3)), allocated here. Raises ValueError where one
-  world's shared arrays do not fit a block."""
+  (B, nv), lam (B, nc, 3)), allocated here. Raises ValueError where not even
+  one world's small shared arrays (those of the device-memory layout) fit a
+  block."""
   B, nc, _, nv = ins[0].shape
   dev = ins[0].device
   if not all(x.is_contiguous() and x.is_cuda for x in ins):
@@ -255,8 +260,8 @@ def launch_kernel(ins, rows, config: ct.SolverConfig):
       torch.cuda.current_stream(dev).cuda_stream)
   if rc != 0:
     if block_shape(nc, nv, kinds, config.n_grid)[0] == 0:
-      raise ValueError(f"nc={nc}, nv={nv}: one world of the solve does not fit a block's "
-                       f"227 KB of shared memory")
+      raise ValueError(f"nc={nc}, nv={nv}: one world's small arrays of the solve do not "
+                       f"fit a block's 227 KB of shared memory")
     raise RuntimeError(f"mf_solve kernel launch failed: cudaError {rc}")
   solve_dynamics_batch.launches += 1
   return u, lam
@@ -288,8 +293,8 @@ def solve_dynamics_batch(Jr, Wt, vf, bias, mu, active,
   """Batched contact-dynamics solve -> (u_new (B, nv), lam (B, nc, 3)).
 
   CUDA tensors (float32) launch csrc/mf_solve.cu and count one launch in
-  `solve_dynamics_batch.launches` (or raise ValueError, where one world's
-  shared arrays do not fit a block: `block_shape`); CPU tensors run
+  `solve_dynamics_batch.launches` (or raise ValueError, where not even one
+  world's small shared arrays fit a block: `block_shape`); CPU tensors run
   `_mf_plain`. Gradients go through `_mf_pure`."""
   return _MFSolve.apply(Jr, Wt, vf, bias, mu, active, config)
 
@@ -313,7 +318,9 @@ def mf_solve_cost(B: int, nc: int, nv: int, kinds: tuple, sweeps: int = 12,
                   n_grid: int = 32):
   """(bytes, operations) the solve needs at these shapes, for its bound.
 
-  Bytes: each float32 input read once, each output written once. Operations,
+  Bytes: each float32 input read once, each output written once (the
+  staged layout reads J and W once; the device-memory layout reads the used
+  rows once a sweep, `sweeps` times what this counts for them). Operations,
   per world: the hoisted dots, then per sweep and row the three (or one, for
   lin) J.z dots and W updates, and for cone rows the full solve
   (`cone_solve_ops`)."""

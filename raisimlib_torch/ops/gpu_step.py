@@ -417,9 +417,10 @@ def _host(x) -> np.ndarray:
   return x.detach().cpu().double().numpy()
 
 
-_UNSUPPORTED_PAIR = ("box-box, capsule-capsule and the support-function pairs "
-                     "are not ported, and are not in the fused kernel's class: "
-                     "ROADMAP.md item 13")
+_UNSUPPORTED_PAIR = ("box-box, capsule-capsule, sphere-cylinder, sphere-mesh and the "
+                     "support-function pairs are outside the fused kernel's class, as in "
+                     "the JAX package's _analyze: such a scene steps on the K2 path "
+                     "(Scene.step_batch)")
 
 
 def _analyze_field(scene, field) -> _HmStatic:
@@ -470,8 +471,9 @@ def _analyze(scene, config, use_pd: bool) -> _StaticData:
       raise FusedStepUnsupported(f"joint type {JointType(jt)!r}")
   tabs = scene.constraints or cs.EMPTY
   if tabs.wires or tabs.pins or tabs.compliant:
-    raise FusedStepUnsupported("wires, pins and compliant wires are not ported: "
-                               "ROADMAP.md item 13")
+    raise FusedStepUnsupported("wires, pins and compliant wires are outside the fused "
+                               "kernel's class, as in the JAX package's _analyze: such a "
+                               "scene steps on the K2 path (Scene.step_batch)")
   geoms = scene.geoms
   field = getattr(scene, "field", None)
   hm = _analyze_field(scene, field) if field is not None else None

@@ -14,7 +14,9 @@ package's single-world functions under `vmap`). Restitution and Baumgarte
 stabilisation enter as a normal-velocity bias. On a scene with a heightmap,
 `field_heights` (B, nx, ny) gives each world its own terrain heights (the JAX
 package's `scene.replace(field=...)` under `vmap`); None uses the scene's
-field for every world.
+field for every world. `f_ext_w` (B, nb, 6) are external wrenches, world
+frame at the world origin ([torque, force], spatial.force_at_point); they
+and the compliant wires' forces enter the bias term through RNEA.
 """
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ def scene_field(scene, field_heights=None, device=None):
 
 
 def _assemble_rows(scene, state: State, tau, pd_target=None,
-                   config: StepConfig = StepConfig(), field_heights=None):
+                   config: StepConfig = StepConfig(), field_heights=None, f_ext_w=None):
   """Collision -> solver-row assembly, shared by the step paths.
 
   Returns (Jr, bias, mu, active, M, rhs0):
@@ -135,10 +137,11 @@ def _assemble_rows(scene, state: State, tau, pd_target=None,
   contacts = coll.collide(scene.geoms, scene.pairs, kin,
                           scene_field(scene, field_heights, dev))
   tabs = scene.constraints or cs.EMPTY
-  if tabs.compliant:
-    raise cs._unported("compliant wires")
   M = dynamics.crba_w(model, q, kin) + dt * torch.diag(D)
-  h = dynamics.nonlinearities(model, q, u, scene.gravity)
+  f_ext = cs.compliant_forces(model, tabs, kin, u) if tabs.compliant else None
+  if f_ext_w is not None:                 # user wrenches (setExternalForce)
+    f_ext = f_ext_w if f_ext is None else f_ext + f_ext_w
+  h = dynamics.nonlinearities(model, q, u, scene.gravity, f_ext)
 
   Jc = contact_jacobians(model, kin, contacts)              # (B, nc, 3, nv)
   C = _tangent_frames(contacts.normal)                      # (B, nc, 3, 3)
@@ -158,7 +161,7 @@ def _assemble_rows(scene, state: State, tau, pd_target=None,
   active = contacts.active
 
   if tabs.n_rows:
-    Jx, bx, mux, actx = cs.constraint_rows(model, tabs, q, u, dt, config.erp,
+    Jx, bx, mux, actx = cs.constraint_rows(model, tabs, kin, q, u, dt, config.erp,
                                            config.max_correction_vel)
     Jr = torch.cat([Jr, Jx], 1)
     bias = torch.cat([bias, bx], 1)
@@ -168,12 +171,12 @@ def _assemble_rows(scene, state: State, tau, pd_target=None,
 
 
 def _pre_solve(scene, state: State, tau, pd_target=None,
-               config: StepConfig = StepConfig(), field_heights=None):
+               config: StepConfig = StepConfig(), field_heights=None, f_ext_w=None):
   """Everything up to the contact solve, with the Delassus G formed by one
   fused (1 + 3 n_rows)-column cho_solve: the reference step's path."""
   nv, dt = scene.model.nv, scene.dt
   Jr, bias, mu, active, M, rhs0 = _assemble_rows(scene, state, tau, pd_target, config,
-                                                 field_heights)
+                                                 field_heights, f_ext_w)
   B, nr = Jr.shape[:2]
   L = linalg.chol(M)
   Jf = Jr.reshape(B, nr * 3, nv)
@@ -201,9 +204,9 @@ def _post_solve(scene, state: State, ctx, lam) -> State:
 
 
 def step(scene, state: State, tau, pd_target=None,
-         config: StepConfig = StepConfig(), field_heights=None) -> State:
+         config: StepConfig = StepConfig(), field_heights=None, f_ext_w=None) -> State:
   """Reference step: forms G and runs the Gauss-Seidel cone solve."""
-  solver_in, ctx = _pre_solve(scene, state, tau, pd_target, config, field_heights)
+  solver_in, ctx = _pre_solve(scene, state, tau, pd_target, config, field_heights, f_ext_w)
   G, c0, mu, active = solver_in
   lam = ct.solve_contacts(G, c0, mu, active, config=config.solver)
   return _post_solve(scene, state, ctx, lam)
@@ -232,7 +235,7 @@ def step_with_report(scene, state: State, tau, pd_target=None,
 
 
 def solver_inputs(scene, state: State, tau, pd_target=None,
-                  config: StepConfig = StepConfig(), field_heights=None):
+                  config: StepConfig = StepConfig(), field_heights=None, f_ext_w=None):
   """The factors the batched solve consumes, and its config with the row kinds.
 
   Returns ((Jr, Wt, vf, bias, mu, active), solver_config): Wt = J M^-1 is
@@ -241,7 +244,7 @@ def solver_inputs(scene, state: State, tau, pd_target=None,
   model, dt = scene.model, scene.dt
   nv = model.nv
   Jr, bias, mu, active, M, rhs0 = _assemble_rows(scene, state, tau, pd_target, config,
-                                                 field_heights)
+                                                 field_heights, f_ext_w)
   L = linalg.chol(M)
   invL = linalg.solve_lower(L, torch.eye(nv, dtype=M.dtype, device=M.device))
   invLt = invL.transpose(-1, -2)
@@ -260,13 +263,14 @@ def solver_inputs(scene, state: State, tau, pd_target=None,
 
 def step_batch(scene, state: State, tau, pd_target=None,
                config: StepConfig = StepConfig(), field_heights=None,
-               use_kernel: bool = True) -> State:
+               use_kernel: bool = True, f_ext_w=None) -> State:
   """Batched step without forming G: the solve consumes J and J M^-1.
 
   `use_kernel=True` runs ops/gpu_contact.solve_dynamics_batch (the CUDA
   kernel on the card, its plain twin on the CPU); `use_kernel=False` runs the
   differentiable reference `_mf_pure`."""
-  args, solver_cfg = solver_inputs(scene, state, tau, pd_target, config, field_heights)
+  args, solver_cfg = solver_inputs(scene, state, tau, pd_target, config, field_heights,
+                                   f_ext_w)
   solve = gpu_contact.solve_dynamics_batch if use_kernel else gpu_contact._mf_pure
   u_new, _ = solve(*args, solver_cfg)
   q_new = dynamics.integrate_q(scene.model, state.q, u_new, scene.dt)

@@ -22,7 +22,7 @@ def cross(a, b):
 
 
 def _mv(M, v):
-  """M v for M (..., 3, 3), v (..., 3)."""
+  """M v for M (..., n, n), v (..., n)."""
   return (M @ v.unsqueeze(-1)).squeeze(-1)
 
 
@@ -71,6 +71,17 @@ def quat_normalize(q, eps=1e-12):
   return q / torch.sqrt(torch.sum(q * q, -1, keepdim=True) + eps)
 
 
+def quat_rotate(q, v):
+  """Rotate v (..., 3) by the unit quaternion q (..., 4): v_world = R(q) v_body."""
+  w, u = q[..., :1], q[..., 1:]
+  uv = cross(u, v)
+  return v + 2.0 * (w * uv + cross(u, uv))
+
+
+def quat_rotate_inv(q, v):
+  return quat_rotate(quat_conj(q), v)
+
+
 def quat_to_mat(q):
   """Unit quaternion -> rotation matrix R with v_world = R v_body."""
   w, x, y, z = q.unbind(-1)
@@ -82,6 +93,33 @@ def quat_to_mat(q):
       torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
       torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
   ], -2)
+
+
+def mat_to_quat(R):
+  """Rotation matrix (..., 3, 3) -> unit quaternion [w, x, y, z]: the four
+  candidates (one per largest diagonal pivot), selected branch-free."""
+  m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+  m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+  m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+  tr = m00 + m11 + m22
+
+  def root(x):
+    return torch.sqrt(torch.clamp(x, min=1e-12)) * 2.0
+
+  s = root(1.0 + tr)
+  cw = torch.stack([0.25 * s, (m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s], -1)
+  s = root(1.0 + m00 - m11 - m22)
+  cx = torch.stack([(m21 - m12) / s, 0.25 * s, (m01 + m10) / s, (m02 + m20) / s], -1)
+  s = root(1.0 - m00 + m11 - m22)
+  cy = torch.stack([(m02 - m20) / s, (m01 + m10) / s, 0.25 * s, (m12 + m21) / s], -1)
+  s = root(1.0 - m00 - m11 + m22)
+  cz = torch.stack([(m10 - m01) / s, (m02 + m20) / s, (m12 + m21) / s, 0.25 * s], -1)
+  use_w = tr > 0.0
+  use_x = ~use_w & (m00 >= m11) & (m00 >= m22)
+  use_y = ~use_w & ~use_x & (m11 >= m22)
+  q = torch.where(use_w[..., None], cw,
+                  torch.where(use_x[..., None], cx, torch.where(use_y[..., None], cy, cz)))
+  return quat_normalize(q)
 
 
 def quat_from_axis_angle(axis, angle):
@@ -119,11 +157,32 @@ def quat_box_minus(q1, q2):
   return scale[..., None] * xyz
 
 
+def xform_identity(dtype=torch.float32, device=None):
+  return (torch.eye(3, dtype=dtype, device=device),
+          torch.zeros(3, dtype=dtype, device=device))
+
+
 def xform_compose(X2, X1):
   """(A->B = X1) then (B->C = X2) -> A->C."""
   E2, r2 = X2
   E1, r1 = X1
   return E2 @ E1, r1 + _mtv(E1, r2)
+
+
+def xform_inv(X):
+  E, r = X
+  return E.transpose(-1, -2), -_mv(E, r)
+
+
+def xform_point(X, p):
+  """A point's A-coordinates to B-coordinates: E (p - r)."""
+  E, r = X
+  return _mv(E, p - r)
+
+
+def xform_point_inv(X, p):
+  E, r = X
+  return _mtv(E, p) + r
 
 
 def xform_motion(X, v):
@@ -174,3 +233,31 @@ def cross_force(v, f):
   w, vl = v[..., :3], v[..., 3:]
   n, fl = f[..., :3], f[..., 3:]
   return torch.cat([cross(w, n) + cross(vl, fl), cross(w, fl)], -1)
+
+
+def spatial_inertia(mass, com, inertia_com):
+  """The 6x6 spatial inertia about the body-frame origin from the mass, the
+  COM (..., 3) and the rotational inertia (..., 3, 3) about the COM:
+  [[I_com + m C C^T, skew(m com)], [skew(m com)^T, m 1]], C = skew(com)."""
+  com = torch.as_tensor(com)
+  inertia_com = torch.as_tensor(inertia_com, dtype=com.dtype, device=com.device)
+  mass = torch.as_tensor(mass, dtype=com.dtype, device=com.device)
+  C = skew(com)
+  I_o = inertia_com + mass[..., None, None] * (C @ C.transpose(-1, -2))
+  h = skew(mass[..., None] * com)
+  m_eye = mass[..., None, None] * torch.eye(3, dtype=com.dtype, device=com.device)
+  return torch.cat([torch.cat([I_o, h], -1), torch.cat([h.transpose(-1, -2), m_eye], -1)], -2)
+
+
+def kinetic_energy(I6, v):
+  return 0.5 * torch.sum(v * _mv(I6, v), -1)
+
+
+def force_at_point(point_w, force_w, torque_w=None):
+  """World wrench [torque at the world origin, force] of a force applied at
+  a world point, plus an optional pure torque: what rnea and the step take
+  as f_ext_w."""
+  tau = cross(point_w, force_w)
+  if torque_w is not None:
+    tau = tau + torque_w
+  return torch.cat([tau, force_w], -1)

@@ -1,18 +1,19 @@
 """World -> Scene: the public scene-building API of the port.
 
-Counterpart of raisimlib_tpu/world.py for articulated systems, loose
-spheres, boxes (also static ones), capsules, cylinders, cones and convex
-meshes, the ground plane and a heightmap. `World.add_*` calls accumulate object specs on the host;
-`World.compile()` merges them into one forest `RobotModel` (a loose body is a
-FREE-joint root) plus static geometry tables on the world's device and
-returns a `Scene`, whose `step` / `step_batch` advance states. A world holds
-at most one heightmap (`add_heightmap`); the compiled Scene carries it as
-`Scene.field`, and `Scene.replace(field=scene.field.replace(heights=h))`
-swaps in other heights. A cylinder, cone or mesh collides with the ground
-and the heightmap only: two of them in one world (or one with a sphere, a box
-or a capsule) pair through the support-function kernel, which is not ported,
-and compile() raises. Not ported yet (ROADMAP.md): those pairs, compounds,
-wires and pins.
+Counterpart of raisimlib_tpu/world.py: articulated systems, loose spheres,
+boxes (also static ones), capsules, cylinders, cones, convex meshes and
+compounds, the ground plane and a heightmap, stiff wires, pins and
+compliant wires. `World.add_*` calls accumulate object specs on the host;
+`World.compile()` merges them into one forest `RobotModel` (a loose body is
+a FREE-joint root) plus static geometry and constraint tables on the
+world's device and returns a `Scene`, whose `step` / `step_batch` advance
+states, with external wrenches if given (`Scene.external_force`). A world
+holds at most one heightmap (`add_heightmap`); the compiled Scene carries it
+as `Scene.field`, and `Scene.replace(field=scene.field.replace(heights=h))`
+swaps in other heights. Every pair of geoms collides (ops/collision.py);
+scenes outside the fused step's class (box-box, capsule-capsule, the
+support-function pairs, wires, pins and compliant wires, as in the JAX
+package) step on the K2 path.
 """
 
 from __future__ import annotations
@@ -63,6 +64,9 @@ class World:
     self._materials: List[tuple] = [(0.8, 0.0, 0.001)]  # (mu, restitution, threshold)
     self._pair_props: dict = {}
     self._field: Optional[HeightField] = None
+    self._wires: List[cs.WireSpec] = []
+    self._pins: List[cs.PinSpec] = []
+    self._compliant: List[cs.CompliantWireSpec] = []
     self._nq = 0
     self._nv = 0
 
@@ -207,6 +211,63 @@ class World:
     return self._add_free_body(name, mass, np.asarray(inertia, np.float64), pos,
                                coll.GEOM_MESH, [], material, com=com, mesh=V)
 
+  def add_compound(self, children, mass: float, name="compound", material=0,
+                   pos=(0.0, 0.0, 1.0), inertia=None,
+                   com=(0.0, 0.0, 0.0)) -> ObjectHandle:
+    """A rigid body of several primitive geoms (RaiSim `Compound`): one
+    FREE-joint body, one geom per child. Each child is a dict {type:
+    "sphere" | "box" | "capsule" | "cylinder", params: sphere [r], box [hx,
+    hy, hz], capsule or cylinder [r, hl], pos (3,), rot (3, 3) optional,
+    material optional}. `inertia` (3, 3) about the COM `com` defaults to
+    the children's primitive inertias (a capsule as the cylinder of its
+    radius and half-length), the mass split by volume, moved to the COM by
+    the parallel-axis theorem."""
+    def volume(t, p):
+      if t == "sphere":
+        return 4.0 / 3.0 * np.pi * p[0] ** 3
+      if t == "box":
+        return 8.0 * p[0] * p[1] * p[2]
+      if t == "capsule":
+        return np.pi * p[0] ** 2 * (2 * p[1]) + 4.0 / 3.0 * np.pi * p[0] ** 3
+      if t == "cylinder":
+        return np.pi * p[0] ** 2 * (2 * p[1])
+      raise ValueError(f"unknown compound child type {t!r}")
+
+    def prim_inertia(t, p, m):
+      if t == "sphere":
+        return 0.4 * m * p[0] ** 2 * np.eye(3)
+      if t == "box":
+        hx, hy, hz = p
+        return m / 3.0 * np.diag([hy * hy + hz * hz, hx * hx + hz * hz, hx * hx + hy * hy])
+      r, length = p[0], 2 * p[1]
+      ixx = m * (3 * r * r + length * length) / 12.0
+      return np.diag([ixx, ixx, 0.5 * m * r * r])
+
+    gtypes = {"sphere": coll.GEOM_SPHERE, "box": coll.GEOM_BOX,
+              "capsule": coll.GEOM_CAPSULE, "cylinder": coll.GEOM_CYLINDER}
+    vols = [volume(c["type"], c["params"]) for c in children]
+    if inertia is None:
+      inertia = np.zeros((3, 3))
+      for c, v in zip(children, vols):
+        mi = mass * v / sum(vols)
+        ci = np.asarray(c.get("pos", (0, 0, 0)), dtype=np.float64) - np.asarray(com)
+        R = np.asarray(c.get("rot", np.eye(3)), dtype=np.float64)
+        inertia = inertia + (R @ prim_inertia(c["type"], c["params"], mi) @ R.T
+                             + mi * (np.dot(ci, ci) * np.eye(3) - np.outer(ci, ci)))
+    spec = dict(parent=-1, joint=JointType.FREE, mass=mass, com=list(com),
+                inertia=np.asarray(inertia, np.float64), actuated=False, name=name,
+                q_init=list(pos) + [1.0, 0.0, 0.0, 0.0])
+    h = self.add_articulated_system([spec], name)
+    obj = len(self._handles) - 1
+    for c in children:
+      self._geoms.append(coll.GeomSpec(
+          h.body_start, gtypes[c["type"]],
+          np.resize(np.asarray(c["params"], dtype=np.float64), 4),
+          np.asarray(c.get("pos", np.zeros(3)), dtype=np.float64),
+          np.asarray(c.get("rot", np.eye(3)), dtype=np.float64),
+          int(c.get("material", material)), obj=obj))
+    return h
+
   def add_ground(self, height: float = 0.0, material: int = 0) -> None:
     self._geoms.append(coll.GeomSpec(-1, coll.GEOM_PLANE,
                                      np.array([height, 0.0, 0.0, 0.0]),
@@ -246,10 +307,35 @@ class World:
     self._geoms.append(coll.GeomSpec(-1, coll.GEOM_HEIGHTMAP, np.zeros(4),
                                      np.zeros(3), np.eye(3), material))
 
+  # -- constraints ----------------------------------------------------------
+  def add_stiff_wire(self, body_a: int, pos_a, body_b: int, pos_b, length: float) -> None:
+    """An inextensible cable between two body-local points (RaiSim
+    `World::addStiffWire`): a unilateral tension row of the contact solve;
+    it resists stretch and never pushes. Body -1 anchors an end to the
+    world (its point in world coordinates)."""
+    self._wires.append(cs.WireSpec(int(body_a), tuple(map(float, pos_a)), int(body_b),
+                                   tuple(map(float, pos_b)), float(length)))
+
+  def add_compliant_wire(self, body_a: int, pos_a, body_b: int, pos_b, length: float,
+                         stiffness: float, damping: float = 0.0) -> None:
+    """A spring-damper cable (RaiSim `CompliantLengthConstraint`): a force
+    in the bias term, not a solver row; tension only."""
+    self._compliant.append(cs.CompliantWireSpec(
+        int(body_a), tuple(map(float, pos_a)), int(body_b), tuple(map(float, pos_b)),
+        float(length), float(stiffness), float(damping)))
+
+  def add_pin(self, body_a: int, pos_a, body_b: int, pos_b) -> None:
+    """A ball joint (RaiSim `PinConstraint`): two body-local points held
+    together by a bilateral row triplet of the solve. Body -1 pins to the
+    world."""
+    self._pins.append(cs.PinSpec(int(body_a), tuple(map(float, pos_a)), int(body_b),
+                                 tuple(map(float, pos_b))))
+
   # -- compile --------------------------------------------------------------
   def compile(self, joint_limits: bool = True) -> "Scene":
     """Freeze to a Scene on the world's device. `joint_limits=True` adds one
-    unilateral solver row per dof with a finite URDF position limit.
+    unilateral solver row per dof with a finite URDF position limit; the
+    wires and pins add theirs after them.
 
     Raises if float32 matmuls may run in reduced precision (TF32): see
     `_device.check_matmul_precision`."""
@@ -265,7 +351,8 @@ class World:
         dt=self.dt,
         kp=torch.zeros(model.nv, dtype=dtype, device=dev),
         kd=torch.zeros(model.nv, dtype=dtype, device=dev),
-        constraints=cs.build_tables(model, joint_limits),
+        constraints=cs.build_tables(model, joint_limits, wires=self._wires, pins=self._pins,
+                                    compliant=self._compliant),
         field=self._field,
         objects=tuple((h.name, h.q_slice.start, h.q_slice.stop, h.v_slice.start,
                        h.v_slice.stop, h.body_start) for h in self._handles))
@@ -299,6 +386,64 @@ class Scene:
   def init_state(self, q=None, u=None) -> State:
     return integrator.init_state(self.model, q, u)
 
+  # -- objects and bodies by name (RaiSim's name registry, getState/setState)
+  @property
+  def object_names(self) -> tuple:
+    return tuple(o[0] for o in self.objects)
+
+  def _object(self, name: str):
+    for o in self.objects:
+      if o[0] == name:
+        return o
+    raise KeyError(f"unknown object {name!r}; registered: {self.object_names}")
+
+  def object_state(self, state: State, name: str):
+    """(q_obj, u_obj): the named object's slices of the state (views)."""
+    _, q0, q1, v0, v1, _ = self._object(name)
+    return state.q[..., q0:q1], state.u[..., v0:v1]
+
+  def set_object_state(self, state: State, name: str, q=None, u=None) -> State:
+    """A new State with the named object's coordinates and/or velocities
+    replaced (the given state is not changed)."""
+    _, q0, q1, v0, v1, _ = self._object(name)
+    qn, un = state.q, state.u
+    if q is not None:
+      qn = qn.clone()
+      qn[..., q0:q1] = torch.as_tensor(q, dtype=qn.dtype, device=qn.device)
+    if u is not None:
+      un = un.clone()
+      un[..., v0:v1] = torch.as_tensor(u, dtype=un.dtype, device=un.device)
+    return State(q=qn, u=un, t=state.t)
+
+  def body_index(self, body_name: str) -> int:
+    """Body index by name (RaiSim `getBodyIdx`)."""
+    return self.model.body_names.index(body_name)
+
+  def body_pose(self, state: State, body_name: str):
+    """(R, p): the named body's world pose at `state` (one FK), for one
+    world (q (nq,)) or a batch (q (B, nq))."""
+    from raisimlib_torch.ops import dynamics
+
+    single = state.q.ndim == 1
+    q = state.q[None] if single else state.q
+    kin = dynamics.fk(self.model, q)
+    b = self.body_index(body_name)
+    R, p = kin.R[:, b], kin.p[:, b]
+    return (R[0], p[0]) if single else (R, p)
+
+  def external_force(self, body_name: str, point_w, force_w, dtype=None) -> torch.Tensor:
+    """(nb, 6) world-frame wrench table that applies `force_w` at the world
+    point `point_w` on the named body, zero elsewhere: for
+    `step(f_ext_w=...)` (RaiSim `setExternalForce`)."""
+    from raisimlib_torch.ops import spatial as sp
+
+    dtype = dtype or self.model.dtype
+    b = self.body_index(body_name)
+    out = torch.zeros((self.model.nb, 6), dtype=dtype, device=self.device)
+    out[b] = sp.force_at_point(torch.as_tensor(point_w, dtype=dtype, device=self.device),
+                               torch.as_tensor(force_w, dtype=dtype, device=self.device))
+    return out
+
   def set_pd_gains(self, kp, kd) -> "Scene":
     """Per-dof PD gains; scalars broadcast over the dofs. Returns a new Scene."""
     nv, dtype, dev = self.model.nv, self.model.dtype, self.device
@@ -310,28 +455,29 @@ class Scene:
     return dataclasses.replace(self, kp=vec(kp), kd=vec(kd))
 
   def step(self, state: State, tau=None, pd_target=None, f_ext_w=None) -> State:
-    """One reference physics step of ONE world (q (nq,), u (nv,))."""
+    """One reference physics step of ONE world (q (nq,), u (nv,)).
+    `f_ext_w` (nb, 6): external wrenches, world frame at the world origin
+    ([torque, force]; `external_force` builds one)."""
     from raisimlib_torch.ops import pipeline
 
-    if f_ext_w is not None:
-      raise NotImplementedError("external wrenches are not ported to "
-                                "raisimlib_torch yet: ROADMAP.md")
     q = state.q
     if tau is None:
       tau = torch.zeros(self.model.nv, dtype=q.dtype, device=q.device)
     s = pipeline.step(self, State(q=q[None], u=state.u[None], t=state.t[None]),
-                      tau[None], None if pd_target is None else pd_target[None])
+                      tau[None], None if pd_target is None else pd_target[None],
+                      f_ext_w=None if f_ext_w is None else f_ext_w[None])
     return State(q=s.q[0], u=s.u[0], t=s.t[0])
 
   def step_batch(self, state: State, tau=None, pd_target=None,
-                 field_heights=None) -> State:
+                 field_heights=None, f_ext_w=None) -> State:
     """Batched step (leading batch axis on state / tau / pd_target) whose
     contact solve is the CUDA kernel on the card. `field_heights` (B, nx, ny)
-    gives each world its own terrain heights (default: the scene's field)."""
+    gives each world its own terrain heights (default: the scene's field);
+    `f_ext_w` (B, nb, 6) external wrenches as in `step`."""
     from raisimlib_torch.ops import pipeline
 
     if tau is None:
       tau = torch.zeros((state.q.shape[0], self.model.nv), dtype=state.q.dtype,
                         device=state.q.device)
     return pipeline.step_batch(self, state, tau, pd_target,
-                               field_heights=field_heights)
+                               field_heights=field_heights, f_ext_w=f_ext_w)

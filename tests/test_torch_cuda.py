@@ -1,6 +1,7 @@
 """Tests that need the card: the hand-written CUDA kernels (K2, also at
-batches whose last block is partly empty and where one world does not fit a
-block, and the fused step K1 on the
+batches whose last block is partly empty, in its device-memory layout at the
+shapes of 7 and 8 free boxes on the ground and where not even one world's
+small arrays fit a block, and the fused step K1 on the
 plane, on a heightmap, with the sphere pairs and with loose cylinders, cones
 and meshes on a heightmap, Atlas at nv = 29, the iLQR scene at the FD
 batch of 39,200 worlds, and at batches whose last warp is partly empty)
@@ -20,7 +21,8 @@ can pick a neighbouring angle."""
 import pytest
 import torch
 
-from torch_port_util import anymal_factors, load_golden, perturbed_states, torch_anymal_scene
+from torch_port_util import (anymal_factors, load_chip_smoke, load_golden, perturbed_states,
+                             torch_anymal_scene)
 
 
 @pytest.mark.cuda
@@ -376,30 +378,88 @@ def test_mf_solve_tail_batches(B):
   assert bool(torch.isnan(uo[B:]).all()) and bool(torch.isnan(lo[B:]).all())
 
 
+def _mf_problem(B, nc, nv, seed):
+  """A random well-posed solve on the card: J random, W = J M^-1 for a
+  random SPD M (chip_smoke.random_problem's recipe), 30% of rows inactive."""
+  g = torch.Generator(device="cuda").manual_seed(seed)
+  f32 = dict(device="cuda", generator=g)
+  Jr = torch.randn(B, nc, 3, nv, **f32)
+  A = torch.randn(B, nv, nv, **f32)
+  M = A @ A.transpose(-1, -2) + 3.0 * torch.eye(nv, device="cuda")
+  Wt = (Jr.reshape(B, 3 * nc, nv) @ torch.linalg.inv(M)).reshape(Jr.shape)
+  return [Jr, Wt, torch.randn(B, nv, **f32), torch.zeros(B, nc, 3, device="cuda"),
+          0.3 + 0.9 * torch.rand(B, nc, **f32), (torch.rand(B, nc, **f32) > 0.3).float()]
+
+
+def _within_tiers(xs, cfg, uk, lk):
+  from raisimlib_torch.ops import gpu_contact as tgc
+
+  up, lp = tgc._mf_plain(*xs, cfg)
+  scale = float(lp.abs().max()) + 1.0
+  rel = ((lk - lp).abs() / scale).cpu().numpy()
+  assert bool(torch.isfinite(uk).all()) and bool(torch.isfinite(lk).all())
+  assert (rel < 1e-4).mean() >= 0.99 and rel.max() < 3e-2
+  assert float((uk - up).abs().max()) < 3e-2 * (float(up.abs().max()) + 1.0)
+
+
 @pytest.mark.cuda
 def test_mf_solve_refuses_a_world_over_a_block():
-  """K2 raises, and launches nothing, where one world's shared arrays pass a
-  block's 227 KB (nc 100, nv 128); it runs nc 48, nv 100 as one world a
-  block."""
+  """K2 raises, and launches nothing, only where not even one world's small
+  shared arrays fit a block's 227 KB (nc 4200, nv 8); it runs nc 100, nv
+  304 (rows past 227 KB; nv >= 3 nc, so that the random problem is well
+  posed) in the device-memory layout, within the twin's tiers, and nc 48,
+  nv 100 staged, one world a block."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device: the kernel has no CPU mode")
   from raisimlib_torch.ops import contact as tct
   from raisimlib_torch.ops import gpu_contact as tgc
 
-  def problem(nc, nv):
-    g = torch.Generator(device="cuda").manual_seed(nc)
-    f32 = dict(device="cuda", generator=g)
-    Jr = torch.randn(2, nc, 3, nv, **f32)
-    return [Jr, 0.01 * Jr, torch.randn(2, nv, **f32), torch.zeros(2, nc, 3, device="cuda"),
-            torch.full((2, nc), 0.8, device="cuda"), torch.ones(2, nc, device="cuda")]
-
   cfg = tct.SolverConfig()
-  assert tgc.block_shape(100, 128, ("cone",) * 100, cfg.n_grid)[0] == 0
+  assert tgc.block_shape(4200, 8, ("cone",) * 4200, cfg.n_grid)[0] == 0
   n0 = tgc.solve_dynamics_batch.launches
-  with pytest.raises(ValueError, match="shared memory"):
-    tgc.solve_dynamics_batch(*problem(100, 128), cfg)
+  with pytest.raises(ValueError, match=r"nc=4200, nv=8.*shared memory"):
+    tgc.solve_dynamics_batch(*_mf_problem(2, 4200, 8, 1), cfg)
   assert tgc.solve_dynamics_batch.launches == n0
-  assert tgc.block_shape(48, 100, ("cone",) * 48, cfg.n_grid)[0] == 1
-  u, lam = tgc.solve_dynamics_batch(*problem(48, 100), cfg)
+  assert tgc.block_shape(100, 304, ("cone",) * 100, cfg.n_grid)[::2] == (2, "device")
+  xs = _mf_problem(3, 100, 304, 2)
+  _within_tiers(xs, cfg, *tgc.solve_dynamics_batch(*xs, cfg))
+  assert tgc.block_shape(48, 100, ("cone",) * 48, cfg.n_grid)[::2] == (1, "shared")
+  u, lam = tgc.solve_dynamics_batch(*_mf_problem(2, 48, 100, 3), cfg)
   torch.cuda.synchronize()
   assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(lam).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_boxes, layout", [(6, "shared"), (7, "device"), (8, "device")])
+def test_mf_solve_layout_at_box_pile_shapes(n_boxes, layout):
+  """K2 on the solver inputs of n boxes of chip_smoke.py's pile (8 plane
+  slots a box, 9 box-box slots a pair, 6 dofs a box) 60 steps into the drop
+  (the bottom boxes landed, the top ones landing), B = 67: 6 boxes stage
+  their rows, 7 and 8 (about 261 and 382 KB of rows a world) read them from
+  device memory. Each within the twin's tiers; tails of 1 and 3 worlds
+  bitwise equal to their worlds in the batch, and the batch launched twice,
+  bitwise (a race between a world's lanes would show)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from raisimlib_torch.ops import gpu_contact as tgc
+  from raisimlib_torch.ops import pipeline
+
+  cs = load_chip_smoke()
+  with torch.inference_mode():
+    scene, q0, _ = cs.k2_scene(torch, "pile", n_boxes)
+    s = cs.k2_states(torch, scene, q0, 67, seed=n_boxes)
+    for _ in range(60):
+      s = scene.step_batch(s)
+    args, cfg = pipeline.solver_inputs(scene, s, torch.zeros_like(s.u))
+    nc, nv = args[0].shape[1], args[0].shape[3]
+    assert (nc, nv) == (8 * n_boxes + 9 * n_boxes * (n_boxes - 1) // 2, 6 * n_boxes)
+    assert tgc.block_shape(nc, nv, cfg.row_kinds, cfg.n_grid)[2] == layout
+    assert float(args[5].sum()) > 0.0
+    uk, lk = tgc.solve_dynamics_batch(*args, cfg)
+    again = tgc.solve_dynamics_batch(*args, cfg)
+    tails = [tgc.solve_dynamics_batch(*[x[:b] for x in args], cfg) for b in (1, 3)]
+    _within_tiers(args, cfg, uk, lk)
+  torch.cuda.synchronize()
+  assert torch.equal(uk, again[0]) and torch.equal(lk, again[1])
+  for b, (ut, lt) in zip((1, 3), tails):
+    assert torch.equal(ut, uk[:b]) and torch.equal(lt, lk[:b])

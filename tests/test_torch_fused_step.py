@@ -257,8 +257,8 @@ def test_gradients_equal_step_batch():
 
 
 def _ineligible_scene():
-  """A box resting on a box: box-box has no K1 slot (nor a port narrow
-  phase yet: ROADMAP.md item 13)."""
+  """A box resting on a box: box-box has no K1 slot (as in the JAX
+  package's _analyze); the K2 path steps it."""
   world = JWorld(dt=0.002, dtype=jnp.float64)
   world.add_ground()
   world.add_box((0.1, 0.1, 0.1), 1.0, pos=(0.0, 0.0, 0.1), name="a")
@@ -271,7 +271,7 @@ def test_require_raises_and_auto_warns_on_ineligible_scene(monkeypatch):
   from raisimlib_torch.ops import gpu_step
 
   ts = _ineligible_scene()
-  with pytest.raises(gpu_step.FusedStepUnsupported, match="ROADMAP.md item 13"):
+  with pytest.raises(gpu_step.FusedStepUnsupported, match="outside the fused kernel's class"):
     state_map.make_contact_dyn_batch(ts, 0.002, 1, use_pd=False, fused="require")
   with pytest.raises(ValueError, match="fused="):
     state_map.make_contact_dyn_batch(ts, 0.002, 1, use_pd=False, fused="always")

@@ -14,10 +14,16 @@ memory is filled with NaN first.
     within 3e-2, and an objective no worse than 2e-3 relative; on the ANYmal
     factors, on random problems with lin and bilateral rows, on a ragged
     batch and at nc 48, nv 64.
-  * The kernel's choice of worlds per block and shared-memory size
-    (`mf_block`, which csrc/mf_solve.cu's launch calls), its refusal where
-    one world does not fit, the wrapper's row table, and its batch-first
-    inputs (no copy of a contiguous float32 input).
+  * The kernel's choice of worlds per block, shared-memory size and layout
+    (`mf_block`, which csrc/mf_solve.cu's launch calls): the rows staged in
+    shared memory where one world's fit, else read from device memory; its
+    refusal where not even one world's small arrays fit; the wrapper's row
+    table, and its batch-first inputs (no copy of a contiguous float32
+    input).
+  * The device-memory layout (a build with MF_DEVICE_ROWS takes it wherever
+    it fits) gives the staged layout's u and lam bit for bit, and takes
+    over between 6 and 7 free boxes on the ground (box-box pairs, 9 slots
+    each), where it holds the twin's tiers.
 
 Races between lanes show only on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
@@ -98,9 +104,16 @@ def problem(name):
 
 def block(host, nc, nv, kinds, n_grid=32):
   """(worlds per block, shared bytes per block) of the build `host`."""
-  nbytes = ctypes.c_int(0)
-  wpb = host.host_mf_block(nc, nv, gc._used_rows(kinds), n_grid, ctypes.byref(nbytes))
-  return wpb, nbytes.value
+  return block_layout(host, nc, nv, kinds, n_grid)[:2]
+
+
+def block_layout(host, nc, nv, kinds, n_grid=32):
+  """(worlds per block, shared bytes per block, layout: "shared" or
+  "device") of the build `host`."""
+  nbytes, staged = ctypes.c_int(0), ctypes.c_int(0)
+  wpb = host.host_mf_block(nc, nv, gc._used_rows(kinds), n_grid, ctypes.byref(nbytes),
+                           ctypes.byref(staged))
+  return wpb, nbytes.value, "shared" if staged.value else "device"
 
 
 def run_host(host, args, kinds, B=None):
@@ -202,9 +215,11 @@ def test_block_shape_and_row_table(hosts):
   host builds): ANYmal 2196 floats a world (48 used rows of 18), 2 worlds a
   block at the kept 16 lanes, 4 at 8, 8 at 4; at the caps (nc 48, nv 64,
   19,328 floats) 2 at 16 lanes and 3 at 8 (4 would pass 227 KB); at nv 100
-  one world, a half warp at 16 lanes; none where one world does not fit
-  (the launch refuses it, and the wrapper raises). The row table: kinds,
-  each solver row's first staged row, each staged row's input row."""
+  one world, a half warp at 16 lanes; at nc 100, nv 128 (one world's rows
+  pass 227 KB) the device-memory layout, 1,752 floats a world, 2 a block;
+  none where not even one world's small arrays fit (nc 4200: the launch
+  refuses it, and the wrapper raises). The row table: kinds, each solver
+  row's first staged row, each staged row's input row."""
   kinds = ("cone",) * 12 + ("lin",) * 12
   table = gc._row_table(kinds, "cpu").tolist()
   assert table[:24] == [0] * 12 + [1] * 12
@@ -216,8 +231,9 @@ def test_block_shape_and_row_table(hosts):
     assert block(hosts(lanes), 24, 18, kinds) == (wpb, wpb * 4 * 2196)
   cone48 = ("cone",) * 48
   assert block(hosts(16), 48, 64, cone48) == (2, 2 * 4 * 19328)
-  assert block(hosts(16), 48, 100, cone48) == (1, 4 * 29768)
-  assert block(hosts(16), 100, 128, ("cone",) * 100) == (0, 0)
+  assert block_layout(hosts(16), 48, 100, cone48) == (1, 4 * 29768, "shared")
+  assert block_layout(hosts(16), 100, 128, ("cone",) * 100) == (2, 2 * 4 * 1752, "device")
+  assert block(hosts(16), 4200, 8, ("cone",) * 4200) == (0, 0)
 
 
 def test_kernel_inputs_are_batch_first():
@@ -235,3 +251,50 @@ def test_kernel_inputs_are_batch_first():
   wide = torch.cat([xs[0], xs[0]], 3)[..., ::2]                  # a strided view
   ins2, _ = gc.kernel_inputs(wide, *xs[1:], cfg)
   assert ins2[0].is_contiguous() and torch.equal(ins2[0], wide)
+
+
+@pytest.fixture(scope="module")
+def device_host(tmp_path_factory):
+  """The kept build (`_build.MF_LANES` lanes) with MF_DEVICE_ROWS: the
+  device-memory layout at every shape."""
+  return host_mf(tmp_path_factory.mktemp("mf_host_dev"), _build.MF_LANES, opt="-O0",
+                 device_rows=True)
+
+
+@pytest.mark.parametrize("name", ["anymal", "lin_bilateral", "mixed_nc12"])
+def test_device_layout_matches_staged_bitwise(name, hosts, device_host):
+  """The J and W rows read from device memory (mf_world<false>) give the
+  staged layout's u and lam bit for bit: the same expressions on the same
+  values, with only the small arrays in (NaN-filled) shared memory."""
+  args, kinds = problem(name)
+  nc, nv = args[0].shape[1], args[0].shape[3]
+  assert block_layout(device_host, nc, nv, kinds or ("cone",) * nc)[2] == "device"
+  assert block_layout(hosts(_build.MF_LANES), nc, nv, kinds or ("cone",) * nc)[2] == "shared"
+  us, ls = run_host(hosts(_build.MF_LANES), args, kinds)
+  ud, ld = run_host(device_host, args, kinds)
+  B = args[0].shape[0]
+  assert np.isfinite(ud[:B]).all() and np.isfinite(ld[:B]).all()
+  assert np.array_equal(us, ud, equal_nan=True) and np.array_equal(ls, ld, equal_nan=True)
+
+
+def box_pile_shape(n):
+  """(nc, nv) of n free boxes on the ground: 8 plane slots a box and 9
+  box-box slots a pair, 6 dofs a box."""
+  return 8 * n + 9 * n * (n - 1) // 2, 6 * n
+
+
+def test_layout_boundary_between_6_and_7_boxes(hosts):
+  """6 free boxes (nc 183, nv 36) stage their rows (one world a block,
+  about 169 KB); 7 (nc 245, nv 42, about 261 KB of rows) take the
+  device-memory layout, 2 worlds a block; and the 7-box shape's random
+  problem through the device layout holds the twin's tiers."""
+  host = hosts(_build.MF_LANES)
+  nc6, nv6 = box_pile_shape(6)
+  wpb, nbytes, layout = block_layout(host, nc6, nv6, ("cone",) * nc6)
+  assert (wpb, layout) == (1, "shared") and 160_000 < nbytes < 175_000
+  nc7, nv7 = box_pile_shape(7)
+  wpb, nbytes, layout = block_layout(host, nc7, nv7, ("cone",) * nc7)
+  assert (wpb, layout) == (2, "device") and nbytes == 2 * 4 * (2 * nv7 + 14 * nc7 + 32 + 64)
+  args, kinds = random_problem(2, nc7, 11, nv=nv7)
+  u, lam = run_host(host, args, kinds)
+  assert_within_tiers(args, kinds, u, lam)

@@ -135,11 +135,19 @@ def test_material_table_and_collide_match_jax():
 
 
 def test_unported_pair_raises():
+  """Every pair of the JAX package's table has a narrow phase (two boxes
+  compile); a pair outside it (a plane attached to a body, against the
+  ground) raises and names the pair, where the JAX package drops it with a
+  warning."""
   from raisimlib_torch.world import World
 
-  w = World(device="cpu")
   body = dict(parent=-1, joint=0, mass=1.0, inertia=np.eye(3) * 0.01)
+  w = World(device="cpu")
   w.add_articulated_system([body], name="a", geoms=[dict(body=0, gtype=1, params=[0.1] * 3)])
   w.add_articulated_system([body], name="b", geoms=[dict(body=0, gtype=1, params=[0.1] * 3)])
-  with pytest.raises(NotImplementedError, match=r"\(box, box\).*item 13"):
+  assert w.compile().pairs == ((0, 1),)
+  w = World(device="cpu")
+  w.add_articulated_system([body], name="a", geoms=[dict(body=0, gtype=3, params=[0.0])])
+  w.add_ground()
+  with pytest.raises(NotImplementedError, match=r"\(plane, plane\) has no narrow phase"):
     w.compile()

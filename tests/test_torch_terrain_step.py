@@ -351,15 +351,30 @@ def test_fused_step_keeps_the_jax_eligibility(case):
 
 def test_unported_geoms_on_terrain_name_their_roadmap_item():
   """A cylinder and a cone in one world on a heightmap: each has its
-  heightmap narrow phase, but the two pair through the support-function
-  kernel, which is not ported, so the scene build refuses the pair and names
-  ROADMAP.md item 13."""
+  heightmap narrow phase, and the two pair through the support-function
+  kernel (ROADMAP.md item 13, now ported): the scene builds with the JAX
+  package's pairs and slot count, and its narrow phase runs."""
+  import jax.numpy as jnp
+  from raisimlib_tpu.ops import collision as jcoll
+  from raisimlib_tpu.ops import heightmap as jhm
+  from raisimlib_tpu.world import World as JWorld
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics
   from raisimlib_torch.utils import terrain
   from raisimlib_torch.world import World
 
-  world = World(dt=0.002, device="cpu")
-  world.add_heightmap(terrain.flat(0.0, size=(2.0, 2.0), samples=(5, 5), device="cpu"))
-  world.add_cylinder(0.05, 0.1, 1.0, pos=(0.0, 0.0, 0.2))
-  world.add_cone(0.05, 0.1, 1.0, pos=(0.5, 0.0, 0.2))
-  with pytest.raises(NotImplementedError, match=r"\(cylinder, cone\).*item 13"):
-    world.compile()
+  scenes = []
+  for W, field in ((World, terrain.flat(0.0, size=(2.0, 2.0), samples=(5, 5), device="cpu")),
+                   (JWorld, jhm.HeightField(heights=jnp.zeros((5, 5)), center=jnp.zeros(2),
+                                            size_x=2.0, size_y=2.0))):
+    world = W(dt=0.002, **({"device": "cpu"} if W is World else {}))
+    world.add_heightmap(field)
+    world.add_cylinder(0.05, 0.1, 1.0, pos=(0.0, 0.0, 0.2))
+    world.add_cone(0.05, 0.1, 1.0, pos=(0.5, 0.0, 0.2))
+    scenes.append(world.compile())
+  ts, js = scenes
+  assert ts.pairs == js.pairs
+  assert coll.num_contact_slots(ts.geoms, ts.pairs) == jcoll.num_contact_slots(js.geoms, js.pairs)
+  s = ts.init_state()
+  c = coll.collide(ts.geoms, ts.pairs, dynamics.fk(ts.model, s.q[None]), ts.field)
+  assert c.depth.shape == (1, 6 + 4 + 4) and float(c.active[0, 10:].sum()) == 0.0

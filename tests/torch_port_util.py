@@ -300,37 +300,45 @@ _MF_HOST = r"""
 #define FS_LANES_END }
 #include "mf_solve.cuh"
 
-// the kernel's frame: blocks of wpb worlds (mf_block), one after another,
-// each block's shared memory a host array filled with NaN before the block
+// the kernel's frame: blocks of wpb worlds in the layout of mf_block, one
+// after another, each block's shared memory a host array filled with NaN
+// before the block
 extern "C" void host_mf(const float* Jr, const float* Wt, const float* vf, const float* bias,
                         const float* mu, const float* act, const int* rows, float* u,
                         float* lam, int B, int nc, int nv, int nrow, int sweeps, int n_grid) {
   const rsl::ConeConsts cc = rsl::mf_cone_consts(n_grid);
-  int bytes = 0;
-  const int wpb = rsl::mf_block(nc, nv, nrow, n_grid, &bytes);
+  int bytes = 0, staged = 1;
+  const int wpb = rsl::mf_block(nc, nv, nrow, n_grid, &bytes, &staged);
   std::vector<float> smem((size_t)bytes / sizeof(float));
   for (int blk = 0; blk < (B + wpb - 1) / wpb; ++blk) {
     for (float& x : smem) x = nanf("");
-    for (int w = 0; w < wpb; ++w)
-      rsl::mf_slot(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow, sweeps, cc,
-                   smem.data(), blk, wpb, w, 0);
+    for (int w = 0; w < wpb; ++w) {
+      if (staged)
+        rsl::mf_slot<true>(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow, sweeps,
+                           cc, smem.data(), blk, wpb, w, 0);
+      else
+        rsl::mf_slot<false>(Jr, Wt, vf, bias, mu, act, rows, u, lam, B, nc, nv, nrow, sweeps,
+                            cc, smem.data(), blk, wpb, w, 0);
+    }
   }
 }
 
-extern "C" int host_mf_block(int nc, int nv, int nrow, int n_grid, int* bytes) {
-  return rsl::mf_block(nc, nv, nrow, n_grid, bytes);
+extern "C" int host_mf_block(int nc, int nv, int nrow, int n_grid, int* bytes, int* staged) {
+  return rsl::mf_block(nc, nv, nrow, n_grid, bytes, staged);
 }
 """
 
 
-def host_mf(tmp_path, lanes, opt="-O1"):
+def host_mf(tmp_path, lanes, opt="-O1", device_rows=False):
   """K2's body (csrc/mf_solve.cuh) and its frame built as host C++ without
-  FMA contraction, at FS_LANES = `lanes`; skips without a host compiler.
-  Returns the library: `host_mf(Jr, Wt, vf, bias, mu, act, rows, u, lam, B,
-  nc, nv, nrow, sweeps, n_grid)` on batch-first float32 arrays (one thread
-  runs each world, its lane regions lane after lane, in blocks of the
-  kernel's worlds per block), and `host_mf_block(nc, nv, nrow, n_grid,
-  &bytes)`, the kernel's worlds per block and shared bytes (`mf_block`)."""
+  FMA contraction, at FS_LANES = `lanes` (with `device_rows`, built with
+  MF_DEVICE_ROWS: the device-memory layout wherever it fits); skips without
+  a host compiler. Returns the library: `host_mf(Jr, Wt, vf, bias, mu, act,
+  rows, u, lam, B, nc, nv, nrow, sweeps, n_grid)` on batch-first float32
+  arrays (one thread runs each world, its lane regions lane after lane, in
+  blocks of the kernel's worlds per block and in its layout), and
+  `host_mf_block(nc, nv, nrow, n_grid, &bytes, &staged)`, the kernel's worlds
+  per block, shared bytes and layout (`mf_block`)."""
   import ctypes
   import shutil
   import subprocess
@@ -340,13 +348,98 @@ def host_mf(tmp_path, lanes, opt="-O1"):
   cxx = shutil.which("g++")
   if cxx is None:
     pytest.skip("needs a host C++ compiler")
-  cpp, lib = tmp_path / f"mf_host_l{int(lanes)}.cpp", tmp_path / f"mf_host_l{int(lanes)}.so"
-  cpp.write_text(f"#define FS_LANES {int(lanes)}\n" + _MF_HOST)
+  tag = f"l{int(lanes)}" + ("_dev" if device_rows else "")
+  cpp, lib = tmp_path / f"mf_host_{tag}.cpp", tmp_path / f"mf_host_{tag}.so"
+  pre = f"#define FS_LANES {int(lanes)}\n" + ("#define MF_DEVICE_ROWS\n" if device_rows else "")
+  cpp.write_text(pre + _MF_HOST)
   r = subprocess.run([cxx, opt, "-ffp-contract=off", "-w", "-shared", "-fPIC",
                       "-I", _build.CSRC, "-o", str(lib), str(cpp)],
                      capture_output=True, text=True, timeout=300)
   assert r.returncode == 0, r.stderr[:3000]
   host = ctypes.CDLL(str(lib))
   host.host_mf.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-  host.host_mf_block.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+  host.host_mf_block.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
   return host
+
+
+def k2_scene_runs(name, cut=None, steps=10, B=2, seed=3, down=0.7):
+  """chip_smoke.py's K2 scene `name` (cut to `cut`) built by the same calls
+  in both packages, float64, B seeded states (the scene's own noise; every
+  free body but the constraint scene's falling at `down` m/s, so that
+  contacts close within the run), stepped `steps` times by the JAX
+  package's step_batch(use_kernel=False), jitted once. Returns (the JAX
+  scene, the port's float64 and float32 scenes, the JAX trajectory as a
+  list of (q, u) numpy pairs, steps + 1 long)."""
+  import jax
+  import jax.numpy as jnp
+  from raisimlib_tpu.ops import pipeline as jp
+  from raisimlib_tpu.ops.integrator import State as JState
+  from raisimlib_tpu.world import World as JWorld
+  from raisimlib_torch.world import World
+
+  cs = load_chip_smoke()
+  w, info = cs.k2_world(JWorld, name, cut, dtype=jnp.float64)
+  js = w.compile(joint_limits=False)
+  ts = {}
+  for dtype in (torch.float64, torch.float32):
+    w, _ = cs.k2_world(World, name, cut, dtype=dtype, device="cpu")
+    ts[dtype] = w.compile(joint_limits=False)
+  t64 = ts[torch.float64]
+  q0 = cs.k2_q0(name, t64.model.q_init.numpy(), info)
+  trio = name == "trio"
+  s = cs.k2_states(torch, t64, q0, B, seed, dxy=0.0 if trio else 5e-3, dv=0.01 if trio else 0.0)
+  u = s.u.clone()
+  if not trio:
+    u[:, 5::6] -= down                      # every body is a free one, 6 dofs each
+  f = jax.jit(lambda q, u: jp.step_batch(js, JState(q=q, u=u, t=jnp.zeros(B)),
+                                         jnp.zeros((B, js.model.nv)), use_kernel=False))
+  q, u = jnp.asarray(s.q.numpy()), jnp.asarray(u.numpy())
+  traj = [(np.asarray(q), np.asarray(u))]
+  for _ in range(steps):
+    sj = f(q, u)
+    q, u = sj.q, sj.u
+    traj.append((np.asarray(q), np.asarray(u)))
+  return js, t64, ts[torch.float32], traj
+
+
+def k2_scene_errors(t64, t32, traj, near=1e-6):
+  """The port against a JAX trajectory (k2_scene_runs): (max |dq|, max |du|)
+  of the float64 pure path (step_batch(use_kernel=False)) over the whole
+  run; of one float32 step from each JAX state; and of one float64 step of
+  the twin (the CPU side of step_batch's kernel path) from the last state
+  with a world it may compare; and how many (state, world) pairs the two
+  one-step comparisons took. They skip, by rule, a world with a contact
+  slot within `near` of activation (|depth| < near, by the port's float64
+  narrow phase at the JAX state): there a rounding puts the slot on either
+  side, and the step follows (the tower's boxes start exactly touching)."""
+  from raisimlib_torch.ops import collision as coll
+  from raisimlib_torch.ops import dynamics, pipeline
+  from raisimlib_torch.ops.integrator import State
+
+  def state(q, u, dtype):
+    return State(q=torch.tensor(q, dtype=dtype), u=torch.tensor(u, dtype=dtype),
+                 t=torch.zeros(q.shape[0], dtype=dtype))
+
+  def err(s, ref, worlds):
+    return (float(np.abs(s.q.double().numpy() - ref[0])[worlds].max(initial=0.0)),
+            float(np.abs(s.u.double().numpy() - ref[1])[worlds].max(initial=0.0)))
+
+  B = traj[0][0].shape[0]
+  zero = torch.zeros((B, t64.model.nv), dtype=torch.float64)
+  s = state(*traj[0], torch.float64)
+  for _ in traj[1:]:
+    s = pipeline.step_batch(t64, s, zero, use_kernel=False)
+  pure = err(s, traj[-1], np.arange(B))
+  one32, compared, last = [0.0, 0.0], 0, None
+  for k in range(len(traj) - 1):
+    c = coll.collide(t64.geoms, t64.pairs, dynamics.fk(t64.model, torch.tensor(traj[k][0])))
+    worlds = np.nonzero((c.depth.abs() >= near).all(1).numpy())[0]
+    if not len(worlds):
+      continue
+    s = pipeline.step_batch(t32, state(*traj[k], torch.float32), zero.float(), use_kernel=False)
+    one32 = [max(a, b) for a, b in zip(one32, err(s, traj[k + 1], worlds))]
+    compared += len(worlds)
+    last = (k, worlds)
+  k, worlds = last
+  twin = err(pipeline.step_batch(t64, state(*traj[k], torch.float64), zero), traj[k + 1], worlds)
+  return pure, tuple(one32), twin, compared

@@ -8,10 +8,10 @@ Run from the repository root on a machine with a CUDA device:
     python3 tools/mf_sweep.py --path [--root DIR]
 
 Each variant "G" is a build of csrc/mf_solve.cu with MF_LANES = G lanes per
-world; "G:device" is the same with the J rows left in device memory (read
-with __ldg) and only the W rows staged in shared memory, a source this tool
-makes from mf_solve.cuh for the comparison (`j_in_device_memory`); one nvcc
-each, all in parallel. At each batch the inputs are the main path's: the
+world; "G:device" is the same built with MF_DEVICE_ROWS, so that it takes
+the kernel's device-memory layout (the J and W rows read from device memory
+with __ldg every sweep, only the small arrays in shared memory) at every
+shape; one nvcc each, all in parallel. At each batch the inputs are the main path's: the
 ANYmal solver inputs (12 cone + 12 lin rows, nv = 18) of chip_smoke.py's
 perturbed standing states. Each build is held to the twin `_mf_plain` at
 chip_smoke.py's tiers (check_kernel's lam tiers and its u bound) and timed
@@ -81,22 +81,6 @@ def with_clocks(body):
   return "#include <cstdio>\n" + body[:end] + stamp + body[end:]
 
 
-def j_in_device_memory(body):
-  """mf_solve.cuh's text with the J rows read from device memory: no J rows
-  in the world's shared arrays, none staged, and MF_J pointing into Jr."""
-  subs = [
-      ("  o.js = off;\n  off += nrow * nv;\n", "  o.js = off;\n"),
-      ("        js[t] = jv[b];\n", ""),
-      ("#define MF_J(i) (js + (size_t)__ldg(slot + (i)) * nv)",
-       "#define MF_J(i) (Jr + ((size_t)3 * (i) + (__ldg(kinds + (i)) == kMfLin ? 2 : 0)) * nv)"),
-  ]
-  for key, text in subs:
-    if body.count(key) != 1:
-      raise SystemExit(f"mf_sweep: {key!r} not once in mf_solve.cuh")
-    body = body.replace(key, text)
-  return body
-
-
 def launch(torch, gc, lib, ins, rows, cfg):
   """One launch of the build `lib` on kernel_inputs' tensors: (u, lam)."""
   B, nc, _, nv = ins[0].shape
@@ -112,9 +96,9 @@ def launch(torch, gc, lib, ins, rows, cfg):
 
 def block(gc, lib, nc, nv, cfg):
   """(worlds per block, shared bytes per block) of the build `lib`."""
-  nbytes = ctypes.c_int(0)
+  nbytes, staged = ctypes.c_int(0), ctypes.c_int(0)
   wpb = lib.mf_solve_block(nc, nv, gc._used_rows(cfg.row_kinds), cfg.n_grid,
-                           ctypes.byref(nbytes))
+                           ctypes.byref(nbytes), ctypes.byref(staged))
   return wpb, nbytes.value
 
 
@@ -180,14 +164,11 @@ def main():
     for v in args.variants:
       G, _, where = v.partition(":")
       G = int(G)
-      if where == "device":
-        text = frame.replace('#include "mf_solve.cuh"', j_in_device_memory(body))
-        name = _build.add_generated(f"mf_solve_l{G}_jdev", f"#define MF_LANES {G}\n" + text,
-                                    symbols)
-      else:
-        name = f"mf_solve_l{G}"
-        _build.KERNELS[name] = dict(source=_build.KERNELS["mf_solve"]["source"],
-                                    defines=(f"-DMF_LANES={G}",), symbols=symbols)
+      name = f"mf_solve_l{G}" + ("_dev" if where == "device" else "")
+      _build.KERNELS[name] = dict(source=_build.KERNELS["mf_solve"]["source"],
+                                  defines=(f"-DMF_LANES={G}",)
+                                  + (("-DMF_DEVICE_ROWS",) if where == "device" else ()),
+                                  symbols=symbols)
       variants[name] = (G, where or "shared")
   clocked = None
   if args.clocks and not args.root:
@@ -237,11 +218,11 @@ def main():
                      "B": B, "kernel_ms": ms, "bound_ms": bound, "worlds_per_block": wpb,
                      "smem_block_bytes": smem, "within_1e-4": frac, "max_rel": relmax,
                      "u_max_rel": u_rel, "ptxas": _build.ptxas_figures(name)})
-        print(f"  G={G}, J in {where} memory, B={B}: {ms:.4f} ms ({wpb} worlds, {smem} B of "
+        print(f"  G={G}, J and W in {where} memory, B={B}: {ms:.4f} ms ({wpb} worlds, {smem} B of "
               f"shared memory a block); vs twin: {frac:.4f} within 1e-4, max rel {relmax:.2e}, "
               f"u max rel {u_rel:.2e}{'' if ok else '  DISAGREES'}", flush=True)
         if not ok:
-          bad.append(f"G={G} J in {where} B={B}")
+          bad.append(f"G={G} rows in {where} B={B}")
   if args.json:
     with open(args.json, "w") as f:
       json.dump({"card": card, "rows": rows}, f, indent=1)
