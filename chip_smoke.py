@@ -12,8 +12,8 @@ heightmaps, Atlas (BASELINE config 5), the port's examples at full size,
 iLQR (the cartpole swing-up, BASELINE config 1, and the ANYmal balance
 iLQR of bench.py, whose derivative stacks run through K1), and the scenes
 outside K1's class (box stacks and piles, the support-function pairs,
-compounds, wires and pins) on the K2 path, through their public entry
-points:
+compounds, wires and pins) on the K2 path, and the parallel layer at world
+size 1, through their public entry points:
 
   1. card and build: the card's name and power limit; the kernels' build
      (K2 from csrc/mf_solve.cu; K1 generated by ops/gpu_step.py for the flat
@@ -142,9 +142,31 @@ points:
       each with its gates (k2_gates), K2 against its twin on the solver
       inputs of three steps, its tails and relaunches bitwise, and K2's
       times beside its bound and the K2 path's step.
+  the parallel layer (raisimlib_torch/parallel) at world size 1, one NCCL
+  rank in this process (parallel.init_distributed; the group is destroyed
+  before the last line), and the checkpoint and profiling utilities
+  (run_parallel; alone: tools/parallel_phases.py):
+  42. parallel.make_sharded_rollout of phase 3's B = 16384 x H = 50 through
+      K1 (fused="auto"), then through K2 (fused="never"): the final q and
+      the q trace bitwise equal to the unsharded rollout through the same
+      step, rollouts/s beside phase 8's;
+  43. parallel.make_sharded_ilqr of phase 35's problem (kernel-FD through
+      K1): U and costs bitwise ilqr_batch's, mean_cost and max_cost its
+      mean and max; solves/s;
+  44. parallel.make_sharded_mppi through K1 (4 scenarios x 64 samples, H =
+      20, 2 iterations): bitwise mppi.receding_horizon on the same noise;
+  45. parallel.qp_shard at qp = 1 on the contact problems of a K2 step (two
+      ANYmal worlds 20 steps into a PD hold, solved in f64): the Signorini
+      and cone conditions of the JAX package's tests/test_qp_shard.py;
+  46. examples.atlas_batch.run(scaling=True): one row, efficiency 1.0, and
+      Atlas's K1 launched once per step of the example and of the row's
+      warm-up and timed repeats;
+  47. utils.checkpoint of a B = 16384 card State, restored bitwise;
+  48. utils.profiling.time_call and trace of one K1 launch (the trace must
+      name the kernel), and tune_sweeps on the ANYmal scene.
 
 Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20,
-24, 30-35, 37 and 38-41 and read just after: each path must launch its own kernel
+24, 30-35, 37, 38-41 and 42-44, 46 and read just after: each path must launch its own kernel
 once per physics step and the other kernel never (the examples: K1 once per
 physics step they take, K2 never; the cartpole neither). Any failure exits non-zero. The last line of
 standard output is one JSON object naming the device; the line before it
@@ -2154,6 +2176,254 @@ def run_k2_scenes(torch, gs, gc, card):
   return entries, recs
 
 
+# ---- phases 42-48: the parallel layer, checkpoint and profiling at world size 1 ----------------
+
+
+def equal_bits(torch, a, b):
+  return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def run_parallel(torch, gs, gc, scene, s0, pd, H, t_roll1, il_step, card):
+  """Phases 42-48 at world size 1, one rank over NCCL in this process
+  (parallel.init_distributed; the group is destroyed before the last line):
+  the sharded rollout through K1 and through K2, the sharded iLQR and the
+  sharded MPPI through K1, the sharded contact solve on a K2 step's
+  problem, atlas_batch --scaling, a checkpoint of a card State, and the
+  profiling helpers. Returns the record."""
+  import torch.distributed as dist
+
+  from raisimlib_torch import parallel
+  from raisimlib_torch.examples import atlas_batch as ex_atlas
+  from raisimlib_torch.mpc import balance_ilqr as bi
+  from raisimlib_torch.mpc import mppi
+  from raisimlib_torch.mpc.ilqr import ILQRConfig, ilqr_batch
+  from raisimlib_torch.mpc.state_map import make_contact_dyn_batch
+  from raisimlib_torch.ops import pipeline
+  from raisimlib_torch.ops.integrator import State
+  from raisimlib_torch.utils import checkpoint, profiling
+
+  rec = {}
+  t_phase = time.perf_counter()
+  dev = parallel.init_distributed()
+  if dist.get_backend() != "nccl" or dist.get_world_size() != 1 or dev.type != "cuda":
+    fail(f"init_distributed: backend {dist.get_backend()}, world {dist.get_world_size()}, "
+         f"device {dev}")
+  mesh = parallel.make_mesh()
+  B = s0.q.shape[0]
+  nv = scene.model.nv
+
+  # ---- 42. the sharded rollout, K1 then K2 ----------------------------------------------------
+  note(f"phase 42: parallel.make_sharded_rollout of the flat ANYmal, B={B} x H={H}, one NCCL "
+       "rank: through K1 (fused='auto'), then through K2 (fused='never'), each bitwise against "
+       "the unsharded rollout through the same step")
+  taus = pd[:, None].expand(B, H, nv)
+  zero = torch.zeros_like(pd)
+  k1 = gs.make_step_batch_fused(scene)
+  for fused_mode, step, label, want in (
+      ("auto", lambda st: k1(st, zero, pd), "K1", (0, H)),
+      ("never", lambda st: scene.step_batch(st, zero, pd), "K2", (H, 0))):
+    with torch.inference_mode():
+      rollout = parallel.make_sharded_rollout(scene, mesh, use_pd=True, fused=fused_mode)
+      if rollout.fused != (label == "K1"):
+        fail(f"the sharded rollout with fused={fused_mode!r} took the wrong step")
+      shard_s, shard_t = parallel.shard_batch(mesh, (s0, taus))
+      rollout(shard_s, shard_t)          # warm-up: the allocator then holds the q trace
+      torch.cuda.synchronize()
+      reset_counts(gc, gs)
+      t0 = time.perf_counter()
+      final, qs = rollout(shard_s, shard_t)
+      torch.cuda.synchronize()
+      t_sh = time.perf_counter() - t0
+      counts = read_counts(gc, gs)
+      final, qs = parallel.gather_batch(mesh, (final.q, qs))
+      s, ref_qs = s0, []
+      for _ in range(H):
+        s = step(s)
+        ref_qs.append(s.q)
+      ref_qs = torch.stack(ref_qs, 1)
+    if counts != want:
+      fail(f"the sharded rollout ({label}) launched (K2, K1) {counts} times for {H} steps")
+    if not (equal_bits(torch, final, s.q) and equal_bits(torch, qs, ref_qs)):
+      fail(f"the sharded rollout ({label}) is not bitwise the unsharded one: max |dq| "
+           f"{float((qs - ref_qs).abs().max()):.3e}")
+    note(f"  {label}: rollouts/s {B / t_sh:.1f} (phase 8, unsharded through K1: "
+         f"{B / t_roll1:.1f}); launches K2 {counts[0]} K1 {counts[1]}; final q and the q "
+         f"trace ({tuple(qs.shape)}) bitwise equal to the unsharded rollout")
+    rec[f"sharded_rollout_{label}"] = {"rollouts_per_s": B / t_sh, "seconds": t_sh,
+                                       "launches": counts, "bitwise": True}
+  rec["unsharded_k1_rollouts_per_s"] = B / t_roll1
+
+  # ---- 43. the sharded iLQR --------------------------------------------------------------------
+  note(f"phase 43: parallel.make_sharded_ilqr of phase 35's ANYmal balance iLQR ({ILQR_ENVS} "
+       f"envs, H={ILQR_H}, {ILQR_ITERS} iterations, kernel-FD through K1), a warm-up solve, "
+       "then one against ilqr_batch")
+  from raisimlib_torch.models import anymal
+
+  il_scene = il_step.scene
+  q0 = anymal.standing_q()
+  dyn_fast, _, _ = make_contact_dyn_batch(il_scene, bi.CONTROL_DT, 1, use_pd=True,
+                                          fused="require")
+  rc, fc, q_stand = bi.balance_costs(q0, device=il_scene.device)
+  cfg = ILQRConfig(iters=ILQR_ITERS, deriv="fd", fd_order=2)
+  solve = parallel.make_sharded_ilqr(None, rc, fc, mesh, cfg, dyn_fast=dyn_fast)
+  solve(*parallel.shard_batch(mesh, ilqr_starts(torch, q0, 0, il_scene.device)))  # warm-up
+  x0s, U0s = ilqr_starts(torch, q0, 1, il_scene.device)
+  torch.cuda.synchronize()
+  reset_counts(gc, gs)
+  t0 = time.perf_counter()
+  U, cost, metrics = solve(*parallel.shard_batch(mesh, (x0s, U0s)))
+  torch.cuda.synchronize()
+  t_il = time.perf_counter() - t0
+  counts = read_counts(gc, gs)
+  ref = ilqr_batch(dyn_fast, None, rc, fc, x0s, U0s, cfg)
+  if counts != (0, ilqr_launches()):
+    fail(f"the sharded iLQR launched (K2, K1) {counts} times, not (0, {ilqr_launches()})")
+  if not (equal_bits(torch, U, ref.U) and equal_bits(torch, cost, ref.cost)):
+    fail(f"the sharded iLQR is not bitwise ilqr_batch: max |dU| "
+         f"{float((U - ref.U).abs().max()):.3e}")
+  if not (float(metrics["mean_cost"]) == float(ref.cost.mean())
+          and float(metrics["max_cost"]) == float(ref.cost.max())):
+    fail(f"the sharded iLQR's metrics {metrics} are not ilqr_batch's mean and max")
+  note(f"  iLQR solves/s {ILQR_ENVS / t_il:.2f} (one solve of {ILQR_ENVS} envs in {t_il:.3f} s);"
+       f" launches K2 {counts[0]} K1 {counts[1]}; U and costs bitwise ilqr_batch's; mean_cost "
+       f"{float(metrics['mean_cost']):.5f}, max_cost {float(metrics['max_cost']):.5f}")
+  rec["sharded_ilqr"] = {"solves_per_s": ILQR_ENVS / t_il, "seconds": t_il, "launches": counts,
+                         "mean_cost": float(metrics["mean_cost"]),
+                         "max_cost": float(metrics["max_cost"]), "bitwise": True}
+
+  # ---- 44. the sharded MPPI --------------------------------------------------------------------
+  E, K, HM, iters = 4, 64, 20, 2
+  note(f"phase 44: parallel.make_sharded_mppi on the balance scene through K1 ({E} scenarios x "
+       f"{K} samples, H={HM}, {iters} iterations), against mppi.receding_horizon on the same "
+       "noise")
+  cfg_m = mppi.MPPIConfig(n_samples=K, sigma=0.1, temperature=0.3)
+  gen = torch.Generator(device=il_scene.device).manual_seed(44)
+  eps = cfg_m.sigma * torch.randn((E, iters, K, HM, 12), generator=gen, device=il_scene.device)
+  x0m, U0m = x0s[:E], q_stand.expand(E, HM, 12).contiguous()
+  msolve = parallel.make_sharded_mppi(dyn_fast, rc, fc, mesh, iters, cfg_m)
+  with torch.inference_mode():
+    x_l, U_l, eps_l = parallel.shard_batch(mesh, (x0m, U0m, eps))
+    torch.cuda.synchronize()
+    reset_counts(gc, gs)
+    t0 = time.perf_counter()
+    Um, costm, mean_m = msolve(x_l, U_l, eps_white=eps_l)
+    torch.cuda.synchronize()
+    t_m = time.perf_counter() - t0
+    counts = read_counts(gc, gs)
+    Ur, costr, _ = mppi.receding_horizon(dyn_fast, rc, fc, x0m, U0m, None, iters, cfg_m,
+                                         eps_white=eps)
+  want = (0, iters * 2 * HM)
+  if counts != want:
+    fail(f"the sharded MPPI launched (K2, K1) {counts} times, not {want}")
+  if not (equal_bits(torch, Um, Ur) and equal_bits(torch, costm, costr)
+          and float(mean_m) == float(costr.mean())):
+    fail(f"the sharded MPPI is not receding_horizon's: max |dU| {float((Um - Ur).abs().max()):.3e}")
+  note(f"  MPPI solves/s {E / t_m:.2f}; launches K2 {counts[0]} K1 {counts[1]} (the samples, "
+       f"then the updated plans, each iteration); U and costs bitwise receding_horizon's; mean "
+       f"cost {float(mean_m):.5f}")
+  rec["sharded_mppi"] = {"solves_per_s": E / t_m, "seconds": t_m, "launches": counts,
+                         "mean_cost": float(mean_m), "bitwise": True}
+
+  # ---- 45. the sharded contact solve --------------------------------------------------------------
+  from raisimlib_torch.parallel.qp_shard import make_sharded_contact_solver
+
+  note("phase 45: parallel.qp_shard at qp = 1 on the contact problem of a K2 step (ANYmal, 20 "
+       "steps into a PD hold, f64 on the card), the Signorini and cone conditions")
+  with torch.inference_mode():
+    s = State(q=s0.q[:2], u=s0.u[:2], t=s0.t[:2])
+    for _ in range(20):
+      s = scene.step_batch(s, zero[:2], pd[:2])
+    (G, c0, mu, active), _ = pipeline._pre_solve(scene, s, zero[:2], pd[:2])
+    qmesh = parallel.Mesh(np.arange(1), ("qp",))
+    qsolve = make_sharded_contact_solver(qmesh, qp_axis="qp", dp_axis=None, iters=128,
+                                         omega=0.7)
+    worst = {}
+    for w in range(2):
+      Gw, cw = G[w].double(), c0[w].double()
+      lam = qsolve(Gw, cw, mu[w].double(), active[w].double())
+      v = torch.einsum("ipjq,jq->ip", Gw, lam) + cw
+      act = active[w] > 0.5
+      closed = act & (lam[:, 2] > 1e-8)
+      cone = (lam[:, :2].norm(dim=1) - mu[w].double() * lam[:, 2])[act]
+      figs = {"n_active": int(act.sum()), "n_closed": int(closed.sum()),
+              "min_lam_n": float(lam[act, 2].min()), "max_cone_excess": float(cone.max()),
+              "min_v_n": float(v[act, 2].min()),
+              "max_closed_v_n": float(v[closed, 2].abs().max()) if closed.any() else 0.0,
+              "max_complementarity": float((lam[closed, 2] * v[closed, 2]).max())
+              if closed.any() else 0.0}
+      worst[w] = figs
+      if not (figs["n_closed"] > 0 and figs["min_lam_n"] >= -1e-12
+              and figs["max_cone_excess"] <= 1e-8 and figs["min_v_n"] >= -1e-6
+              and figs["max_closed_v_n"] < 1e-4 and figs["max_complementarity"] < 1e-6):
+        fail(f"the sharded contact solve, world {w}: {figs}")
+  note(f"  {worst}")
+  rec["sharded_contact_solve"] = worst
+
+  # ---- 46. atlas_batch --scaling ----------------------------------------------------------------
+  note("phase 46: examples.atlas_batch.run(scaling=True): the weak-scaling table at "
+       "device_counts [1] (the world holds one rank)")
+  from raisimlib_torch import scenarios
+
+  Hs = int(os.environ.get("ATLAS_SCALING_H", scenarios.load("atlas_batch")["scaling"]["horizon"]))
+  reset_counts(gc, gs)
+  res = ex_atlas.run(scaling=True)
+  counts = read_counts(gc, gs)
+  rows = res["scaling"]
+  # the example's rollouts, then the row's warm-up and its 3 timed repeats
+  want = (0, res["physics_steps"] + (1 + 3) * Hs)
+  if [r["n_devices"] for r in rows] != [1] or rows[0]["efficiency"] != 1.0 or counts != want:
+    fail(f"atlas_batch --scaling: rows {rows}, launches (K2, K1) {counts}, not {want}")
+  note(f"  one row: {rows[0]['throughput']:.1f} rollouts/s a rank, efficiency "
+       f"{rows[0]['efficiency']}; launches K2 {counts[0]} K1 {counts[1]}")
+  rec["atlas_scaling"] = {"rows": rows, "launches": counts}
+
+  # ---- 47. checkpoint --------------------------------------------------------------------------
+  note(f"phase 47: utils.checkpoint.save and restore of a B={B} card State")
+  out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "metrics", "torch")
+  path = os.path.join(out_dir, "chip_smoke_state.npz")
+  t0 = time.perf_counter()
+  checkpoint.save(path, s0, step=47)
+  template = State(q=torch.zeros_like(s0.q), u=torch.zeros_like(s0.u), t=torch.zeros_like(s0.t))
+  back, scalars = checkpoint.restore(path, template)
+  t_ck = time.perf_counter() - t0
+  size = os.path.getsize(path)
+  os.remove(path)
+  if not (all(equal_bits(torch, getattr(back, f), getattr(s0, f)) for f in ("q", "u", "t"))
+          and back.q.device == s0.q.device and int(scalars["step"]) == 47):
+    fail("the checkpoint of a card State did not come back bitwise on the card")
+  note(f"  {size / 1e6:.2f} MB saved and restored in {t_ck:.3f} s, bitwise, on {back.q.device}")
+  rec["checkpoint"] = {"bytes": size, "seconds": t_ck}
+
+  # ---- 48. profiling -------------------------------------------------------------------------------
+  note(f"phase 48: utils.profiling.time_call and trace on one K1 launch (B={B}), and "
+       "tune_sweeps on the ANYmal scene (K2 path, 256 perturbed standing states)")
+  with torch.inference_mode():
+    tm = profiling.time_call(k1, s0, zero, pd, iters=5)
+    logdir = os.path.join(out_dir, "chip_smoke_trace")
+    profiling.trace(k1, s0, zero, pd, logdir=logdir)
+    trace_file = os.path.join(logdir, "trace.json")
+    with open(trace_file) as f:
+      named = "fused_step_kernel" in f.read()
+    kern = [e for e in profiling.trace.last.key_averages() if "fused_step_kernel" in e.key]
+    dev_us = sum(getattr(e, "device_time_total", 0) for e in kern)
+    size = os.path.getsize(trace_file)
+    if not named or not kern:
+      fail(f"the profiler's trace ({trace_file}, {size} B) does not name K1's kernel")
+    st, pdt, _ = standing_states(torch, scene, 256, seed=48)
+    sweeps, err = profiling.tune_sweeps(scene, st, torch.zeros_like(pdt), pdt)
+  note(f"  time_call: first {1e3 * tm['first_s']:.3f} ms, best {1e3 * tm['best_s']:.3f} ms, "
+       f"mean {1e3 * tm['mean_s']:.3f} ms; trace {size} B names K1's kernel "
+       f"({kern[0].key[:60]}), {dev_us / 1e3:.3f} ms of device time; tune_sweeps -> {sweeps} "
+       f"sweeps (one-step max |du| {err:.2e} against 48 sweeps)")
+  rec["profiling"] = {"time_call": tm, "trace_bytes": size, "k1_device_ms": dev_us / 1e3,
+                      "tune_sweeps": [sweeps, err]}
+  dist.destroy_process_group()
+  rec["phase_seconds"] = time.perf_counter() - t_phase
+  note(f"  phases 42-48: {rec['phase_seconds']:.1f} s; card: {card}")
+  return rec
+
+
+
 def main():
   import torch
 
@@ -2687,6 +2957,12 @@ def main():
       torch, gs, gc, _build, built, stream, (at_scene, at_q0, at_step), scen_steps, same_source)
   k1_ilqr, ilqr_rec = run_ilqr(torch, gs, gc, _build, built, stream, il_step)
   k2_scenes, k2_recs = run_k2_scenes(torch, gs, gc, card)
+  par = run_parallel(torch, gs, gc, scene, s0, pd, H, t_roll1, il_step, card)
+  k1["launches_sharded"] = par["sharded_rollout_K1"]["launches"][1]
+  k1_ilqr["launches_sharded"] = (par["sharded_ilqr"]["launches"][1]
+                                 + par["sharded_mppi"]["launches"][1])
+  k1_atlas["launches_scaling"] = par["atlas_scaling"]["launches"][1]
+  k2["launches_sharded"] = par["sharded_rollout_K2"]["launches"][0]
   k1["launches_balance_example"] = ex_launches["anymal_balance"]
   k1c["launches_trot_example"] = ex_launches["anymal_trot_heightmap"]
   k1b["launches_stack_example"] = ex_launches["sphere_box_stack"]
@@ -2713,6 +2989,12 @@ def main():
   note("  K2 scenes: " + "; ".join(
       f"{n} {r['batch']} x {r['steps']} steps in {r['seconds']:.2f} s "
       f"({r['batch'] * r['steps'] / r['seconds']:.0f} world-steps/s)" for n, r in k2_recs.items()))
+  note(f"  parallel (world size 1): sharded rollouts/s through K1 "
+       f"{par['sharded_rollout_K1']['rollouts_per_s']:.1f} (unsharded "
+       f"{par['unsharded_k1_rollouts_per_s']:.1f}), through K2 "
+       f"{par['sharded_rollout_K2']['rollouts_per_s']:.1f}; sharded iLQR solves/s "
+       f"{par['sharded_ilqr']['solves_per_s']:.2f}; sharded MPPI solves/s "
+       f"{par['sharded_mppi']['solves_per_s']:.2f}")
   note(f"total {time.perf_counter() - t_start:.1f} s")
   note(f"card: {card}")
   print(json.dumps({"kernels": [k2, k1, k1c, k1b, k1c_shapes, k1_atlas, k1_ilqr] + k2_scenes}),

@@ -8,10 +8,17 @@ under the per-group PD hold. Atlas is in the fused step's class, so the
 batch steps through make_step_batch_fused (K1a at nv = 29 on the card, one
 launch a step; its plain twin on the CPU); where the fused step refuses the
 scene it falls back to Scene.step_batch (the K2 path), and the record's
-`step_path` says which ran. The sharded weak-scaling table (`--scaling`)
-is not ported yet (ROADMAP.md item 15).
+`step_path` says which ran.
 
-Run:  python3 -m raisimlib_torch.examples.atlas_batch [--smoke] [--device cpu]
+`--scaling` adds the weak-scaling table of the JAX example: the scenario's
+`scaling` block (per-rank batch and horizon, overridden by the
+ATLAS_SCALING_PER_DEV and ATLAS_SCALING_H environment variables), the PD
+hold through parallel.make_sharded_rollout on meshes of the listed sizes
+that the world holds, one process per card (torch.distributed; a single
+process forms a one-rank group of its own):
+
+Run:  python3 -m raisimlib_torch.examples.atlas_batch [--smoke] [--device cpu] [--scaling]
+      torchrun --nproc-per-node 4 -m raisimlib_torch.examples.atlas_batch --scaling
 """
 
 from __future__ import annotations
@@ -55,10 +62,16 @@ def run(smoke: bool = False, scaling: bool = False, device=None,
   from raisimlib_torch.ops.integrator import State
   from raisimlib_torch.utils import metrics
 
-  if scaling:
-    raise NotImplementedError("the sharded weak-scaling table of atlas_batch is not ported "
-                              "to raisimlib_torch yet: ROADMAP.md item 15")
   dev = resolve_device(device)
+  own_group = False
+  if scaling:
+    # join the process group first: under a launcher it picks this rank's card
+    import torch.distributed as dist
+
+    from raisimlib_torch import parallel
+
+    own_group = not dist.is_initialized()
+    dev = parallel.init_distributed(device=dev if dev.type == "cpu" else None)
   scene, q0, cfg = build_scene(torch.float32, dev)
   rcfg = cfg["run"]
   B = int(rcfg["smoke_batch"] if smoke else rcfg["batch"])
@@ -116,12 +129,58 @@ def run(smoke: bool = False, scaling: bool = False, device=None,
   metrics.emit("example_atlas_batch", path=metrics_path, echo=True, **result)
   if not smoke:
     gate(result["standing_fraction"] > 0.99, "robots fell in the batched scene")
+  if scaling:
+    result["scaling"] = scaling_table(scene, q0, cfg, smoke, dev, own_group)
   return result
+
+
+def scaling_table(scene, q0, cfg, smoke: bool, dev, own_group: bool) -> list:
+  """The weak-scaling rows of the PD hold over meshes of the scenario's
+  `device_counts` that the world holds, each emitted as an
+  "atlas_weak_scaling" record by rank 0. Leaves the process group again if
+  `run` formed it (`own_group`)."""
+  import torch.distributed as dist
+
+  from raisimlib_torch import parallel
+  from raisimlib_torch.utils import metrics
+
+  scfg = cfg["scaling"]
+  per_dev = int(os.environ.get("ATLAS_SCALING_PER_DEV",
+                               scfg["smoke_per_device"] if smoke else scfg["per_device"]))
+  Hs = int(os.environ.get("ATLAS_SCALING_H", scfg["smoke_horizon"] if smoke else scfg["horizon"]))
+  try:
+    nv = scene.model.nv
+    pd1 = torch.zeros(nv, dtype=q0.dtype, device=dev)
+    pd1[6:] = q0[7:]
+
+    def build(mesh):
+      Bs = per_dev * mesh.size
+      sts = batch_states(scene, q0, Bs, torch.Generator(device=dev).manual_seed(1))
+      pds = pd1.expand(Bs, Hs, nv)
+      fn = parallel.make_sharded_rollout(scene, mesh, use_pd=True)
+      sts, pds = parallel.shard_batch(mesh, (sts, pds))
+
+      def roll(s, p):
+        with torch.inference_mode():
+          return fn(s, p)[0].q
+      return roll, (sts, pds)
+
+    counts = [n for n in scfg["device_counts"] if n <= dist.get_world_size()]
+    rows = parallel.weak_scaling_report(build, per_dev, device_counts=counts,
+                                        unit="rollouts/s")
+    if dist.get_rank() == 0:
+      for r in rows:
+        metrics.emit("atlas_weak_scaling",
+                     path=os.path.join(METRICS_DIR, "atlas_weak_scaling.jsonl"), echo=True, **r)
+    return rows
+  finally:
+    if own_group:
+      dist.destroy_process_group()
 
 
 if __name__ == "__main__":
   ap = cli(__doc__.splitlines()[0])
   ap.add_argument("--scaling", action="store_true",
-                  help="the weak-scaling table (not ported yet: ROADMAP.md item 15)")
+                  help="also the weak-scaling table over the world's ranks")
   args = ap.parse_args()
   run(smoke=args.smoke, scaling=args.scaling, device=args.device)

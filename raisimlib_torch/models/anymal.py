@@ -116,3 +116,8 @@ def standing_q(base_z: float | None = None) -> np.ndarray:
   for name, sx, sy in LEGS:
     q += [0.0, STAND_HFE * sx, STAND_KFE * sx]
   return np.asarray(q)
+
+
+def joint_order():
+  """The 12 actuated joint names in dof order (LF, RF, LH, RH; HAA, HFE, KFE)."""
+  return [f"{name}_{j}" for name, _, _ in LEGS for j in ("HAA", "HFE", "KFE")]

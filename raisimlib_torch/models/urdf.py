@@ -2,13 +2,16 @@
 
 Counterpart of raisimlib_tpu/models/urdf.py. Supported: revolute/continuous/
 prismatic/fixed/floating joints, inertial origins with rpy, sphere/box/
-cylinder/capsule collision geoms. Fixed joints are collapsed into the parent
+cylinder/capsule/mesh collision geoms. Fixed joints are collapsed into the parent
 (inertia composed by the parallel-axis theorem, geoms re-expressed in the
-parent frame). Mesh collision geometry (OBJ/STL) is not ported yet and raises.
+parent frame). A mesh geom whose OBJ/STL file is missing or unreadable is
+dropped with a warning, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
+import struct
 import warnings
 import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional, Tuple
@@ -20,6 +23,7 @@ from raisimlib_torch.ops.collision import (
     GEOM_BOX,
     GEOM_CAPSULE,
     GEOM_CYLINDER,
+    GEOM_MESH,
     GEOM_SPHERE,
 )
 
@@ -100,11 +104,48 @@ def _parse_geometry(geo_el, pos, R, material) -> Optional[dict]:
     return dict(gtype=GEOM_CAPSULE,
                 params=[float(cap.get("radius")), float(cap.get("length")) / 2],
                 offset_pos=pos, offset_rot=R, material=material)
-  if geo_el.find("mesh") is not None:
-    raise NotImplementedError(
-        "URDF mesh collision geometry (OBJ/STL) is not ported to "
-        "raisimlib_torch yet: ROADMAP.md, 'Rest of collision and constraints'")
+  mesh = geo_el.find("mesh")
+  if mesh is not None:
+    verts = load_mesh_vertices(mesh.get("filename", ""))
+    if verts is None:
+      return None                        # the caller warns (missing or unreadable file)
+    scale = mesh.get("scale")
+    if scale:
+      verts = verts * np.array([float(v) for v in scale.split()])
+    return dict(gtype=GEOM_MESH, params=[], offset_pos=pos, offset_rot=R,
+                material=material, mesh=verts)
   return None
+
+
+def load_mesh_vertices(path: str):
+  """Vertex table of an .obj (ASCII) or .stl (binary or ASCII) mesh file:
+  (n, 3) float64, or None if the file is missing, unsupported or has fewer
+  than 4 vertices. Only vertices are read: the collision kernels use the
+  vertex-sampled convex hull (collision.hull_support_sample)."""
+  if not path or not os.path.exists(path):
+    return None
+  ext = os.path.splitext(path)[1].lower()
+  if ext == ".obj":
+    with open(path) as f:
+      verts = [[float(v) for v in line.split()[1:4]] for line in f if line.startswith("v ")]
+    return np.asarray(verts) if len(verts) >= 4 else None
+  if ext != ".stl":
+    return None
+  with open(path, "rb") as f:
+    raw = f.read()
+  if raw[:5].lower() == b"solid" and b"facet" in raw[:500]:
+    verts = [[float(v) for v in t[1:]] for t in (line.split() for line in
+                                                  raw.decode(errors="ignore").splitlines())
+             if len(t) == 4 and t[0] == "vertex"]
+    return np.unique(np.asarray(verts), axis=0) if len(verts) >= 4 else None
+  if len(raw) < 84:
+    return None
+  (n_tri,) = struct.unpack_from("<I", raw, 80)
+  if len(raw) < 84 + 50 * n_tri:
+    return None
+  tri = np.frombuffer(raw[84:84 + 50 * n_tri], dtype=np.uint8)
+  tri = tri.reshape(n_tri, 50)[:, 12:48].copy().view("<f4").reshape(n_tri, 3, 3)
+  return np.unique(tri.reshape(-1, 3).astype(np.float64), axis=0)
 
 
 def load_urdf(

@@ -1,10 +1,11 @@
 """Sampling-based MPC (MPPI) with the whole sample population in one batch.
 
-Counterpart of raisimlib_tpu/mpc/mppi.py (MPPIConfig, _colorize,
-mppi_step_batch). K perturbed control sequences per environment roll out
-together through a batched dynamics, are weighted by exp(-cost / T) and
-averaged. torch cannot reproduce `jax.random`, so the white noise comes from
-an explicit `torch.Generator`, or is passed in as `eps_white`.
+Counterpart of raisimlib_tpu/mpc/mppi.py (MPPIConfig, _colorize, mppi_step,
+mppi_step_batch, receding_horizon). K perturbed control sequences per
+environment roll out together through a batched dynamics, are weighted by
+exp(-cost / T) and averaged. torch cannot reproduce `jax.random`, so the
+white noise comes from an explicit `torch.Generator`, or is passed in as
+`eps_white`.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ class MPPIConfig:
 
 
 class MPPISolution(NamedTuple):
-  U: torch.Tensor           # (E, H, nu) updated plans
-  cost: torch.Tensor        # (E,) cost of the incoming plan (sample 0)
+  U: torch.Tensor           # (E, H, nu) updated plans ((H, nu) from mppi_step)
+  cost: torch.Tensor        # mppi_step_batch: (E,) cost of the incoming plan (sample 0);
+                            # mppi_step: the cost of the updated plan
   best_cost: torch.Tensor   # (E,) best sampled rollout cost
 
 
@@ -39,6 +41,11 @@ def _colorize(eps_white, smooth: float):
     out.append(prev)
   # steady-state std of s*prev + (1-s)*e is sigma*sqrt((1-s)/(1+s))
   return torch.stack(out, -2) / ((1.0 - smooth) / (1.0 + smooth) + 1e-9) ** 0.5
+
+
+def _draw(generator, config, shape, like):
+  return config.sigma * torch.randn(shape, generator=generator, dtype=like.dtype,
+                                    device=like.device)
 
 
 def mppi_step_batch(
@@ -65,29 +72,107 @@ def mppi_step_batch(
   samples and passed on as `dyn_b(X, A, t, ctx)`, `running_cost(X, A, t,
   ctx)` and `final_cost(X, ctx)`."""
   E, H, nu = Us.shape
-  K = config.n_samples
   if eps_white is None:
-    eps_white = config.sigma * torch.randn((E, K, H, nu), generator=generator,
-                                           dtype=Us.dtype, device=Us.device)
+    eps_white = _draw(generator, config, (E, config.n_samples, H, nu), Us)
+  ctx = () if env_ctx is None else (env_ctx.repeat_interleave(config.n_samples, 0),)
+  U_new, costs = _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config,
+                                ctx)
+  return MPPISolution(U=U_new, cost=costs[:, 0], best_cost=costs.min(1).values)
+
+
+def _rollout_costs(dyn_b, running_cost, final_cost, X, U, ctx=()):
+  """(N,) costs of N plans U (N, H, nu) from X (N, nx), in one physics batch."""
+  acc = torch.zeros(X.shape[0], dtype=U.dtype, device=U.device)
+  for t in range(U.shape[1]):
+    acc = acc + running_cost(X, U[:, t], t, *ctx)
+    X = dyn_b(X, U[:, t], t, *ctx)
+  return acc + final_cost(X, *ctx)
+
+
+def _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config, ctx=()):
+  """The E * K sample rollouts in one physics batch (sample 0 of each
+  environment the unperturbed plan) and the weighted (or elite) average:
+  (U_new (E, H, nu), costs (E, K))."""
+  E, H, nu = Us.shape
+  K = config.n_samples
   eps = _colorize(eps_white, config.smooth)
   eps[:, 0] = 0.0
   Usamp = Us[:, None] + eps                               # (E, K, H, nu)
-
   X = x0s[:, None, :].expand(E, K, x0s.shape[-1]).reshape(E * K, -1)
-  Uflat = Usamp.reshape(E * K, H, nu)
-  acc = torch.zeros(E * K, dtype=Us.dtype, device=Us.device)
-  ctx = () if env_ctx is None else (env_ctx.repeat_interleave(K, 0),)
-  for t in range(H):
-    acc = acc + running_cost(X, Uflat[:, t], t, *ctx)
-    X = dyn_b(X, Uflat[:, t], t, *ctx)
-  costs = (acc + final_cost(X, *ctx)).reshape(E, K)
-
+  costs = _rollout_costs(dyn_b, running_cost, final_cost, X, Usamp.reshape(E * K, H, nu),
+                         ctx).reshape(E, K)
   if config.n_elite > 0:
     top = torch.topk(-costs, config.n_elite, dim=1).indices
-    U_new = torch.take_along_dim(Usamp, top[:, :, None, None], 1).mean(1)
-  else:
-    beta = costs.min(1, keepdim=True).values
-    w = torch.exp(-(costs - beta) / config.temperature)
-    w = w / w.sum(1, keepdim=True)
-    U_new = torch.einsum("ek,ekhu->ehu", w, Usamp)
-  return MPPISolution(U=U_new, cost=costs[:, 0], best_cost=costs.min(1).values)
+    return torch.take_along_dim(Usamp, top[:, :, None, None], 1).mean(1), costs
+  w = torch.exp(-(costs - costs.min(1, keepdim=True).values) / config.temperature)
+  return torch.einsum("ek,ekhu->ehu", w / w.sum(1, keepdim=True), Usamp), costs
+
+
+def _mppi_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config):
+  """mppi_step of E problems at once: the E * K samples in one physics
+  batch, then the E updated plans in another. Returns an MPPISolution with
+  an E axis; `cost` is the updated plan's."""
+  U_new, costs = _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config)
+  cost_new = _rollout_costs(dyn_b, running_cost, final_cost, x0s, U_new)
+  return MPPISolution(U=U_new, cost=cost_new, best_cost=costs.min(1).values)
+
+
+def mppi_step(
+    dyn_b: Callable,
+    running_cost: Callable,
+    final_cost: Callable,
+    x0: torch.Tensor,       # (nx,)
+    U: torch.Tensor,        # (H, nu)
+    generator: Optional[torch.Generator] = None,
+    config: MPPIConfig = MPPIConfig(),
+    eps_white: Optional[torch.Tensor] = None,
+) -> MPPISolution:
+  """One MPPI update of the plan U (call repeatedly for receding-horizon
+  MPC). The dynamics and costs are batched, as mppi_step_batch takes them;
+  the K samples roll out in one batch. `eps_white` (K, H, nu), the scaled
+  white noise, or drawn from `generator`. Unlike mppi_step_batch's, the
+  returned `cost` is the cost of the UPDATED plan, one more rollout, as in
+  the JAX package."""
+  H, nu = U.shape
+  if eps_white is None:
+    eps_white = _draw(generator, config, (config.n_samples, H, nu), U)
+  sol = _mppi_update(dyn_b, running_cost, final_cost, x0[None], U[None], eps_white[None],
+                     config)
+  return MPPISolution(*(x[0] for x in sol))
+
+
+def receding_horizon(
+    dyn_b: Callable,
+    running_cost: Callable,
+    final_cost: Callable,
+    x0: torch.Tensor,
+    U0: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    n_iters: int = 1,
+    config: MPPIConfig = MPPIConfig(),
+    eps_white: Optional[torch.Tensor] = None,
+):
+  """`n_iters` mppi_step updates on a fixed x0 (one MPC solve). Returns
+  (U, cost, trace), the last update's plan and cost and every update's cost.
+
+  x0 (nx,) and U0 (H, nu) for one problem, or x0 (E, nx) and U0 (E, H, nu)
+  for E problems whose samples share each update's physics batch (E * K
+  rows, then E for the updated plans), each solved as on its own.
+  `eps_white`, the scaled white noise of every update, is (n_iters, K, H,
+  nu), or (E, n_iters, K, H, nu) for E problems; without it each update
+  draws (E, K, H, nu) from `generator`."""
+  one = x0.ndim == 1
+  x0s, Us = (x0[None], U0[None]) if one else (x0, U0)
+  if eps_white is not None and one:
+    eps_white = eps_white[None]
+  E, H, nu = Us.shape
+  trace = []
+  for i in range(n_iters):
+    e = (_draw(generator, config, (E, config.n_samples, H, nu), Us) if eps_white is None
+         else eps_white[:, i])
+    sol = _mppi_update(dyn_b, running_cost, final_cost, x0s, Us, e, config)
+    Us = sol.U
+    trace.append(sol.cost)
+  trace = torch.stack(trace, 1)
+  cost = trace[:, -1]
+  return (Us[0], cost[0], trace[0]) if one else (Us, cost, trace)

@@ -1,7 +1,7 @@
 """Flat state vectors and batched contact dynamics for MPC.
 
 Counterpart of raisimlib_tpu/mpc/state_map.py (state_to_vec, vec_to_state,
-make_contact_dyn_batch). The optimiser works on flat vectors x = [q, u];
+make_contact_dyn, make_contact_dyn_batch). The optimiser works on flat vectors x = [q, u];
 quaternions are renormalised by the dynamics each step.
 """
 
@@ -29,6 +29,29 @@ def vec_to_state(model, x: torch.Tensor, t=0.0) -> State:
 
 def _on_card(scene) -> bool:
   return scene.device.type == "cuda"
+
+
+def make_contact_dyn(scene, control_dt: float, substeps: int, use_pd: bool = True):
+  """One-world `dyn(x, action, t) -> x_next` for x (nx,) and action (nu,):
+  `substeps` reference physics steps (Scene.step) per control step. The
+  action holds PD joint-position targets of the actuated dofs if `use_pd`,
+  else their torques. Returns (dyn, nx, nu)."""
+  model = scene.model
+  act_idx = torch.as_tensor(
+      np.nonzero(model.actuated.detach().cpu().numpy() > 0.5)[0], device=scene.device)
+  if abs(scene.dt * substeps - control_dt) > 1e-9:
+    raise ValueError(f"scene.dt * substeps ({scene.dt}*{substeps}) must equal "
+                     f"control_dt {control_dt}")
+
+  def dyn(x, action, t):
+    state = vec_to_state(model, x)
+    full = torch.zeros(model.nv, dtype=x.dtype, device=x.device)
+    full[act_idx] = action
+    for _ in range(substeps):
+      state = scene.step(state, pd_target=full) if use_pd else scene.step(state, full)
+    return state_to_vec(state)
+
+  return dyn, model.nq + model.nv, len(act_idx)
 
 
 def make_contact_dyn_batch(scene, control_dt: float, substeps: int,

@@ -83,6 +83,13 @@ def _joint_cj(model: RobotModel, i: int, vJ):
 
 
 def fk(model: RobotModel, q, u=None) -> KinData:
+  """Forward kinematics: world poses, world-frame dof subspaces, body
+  twists, by the per-body sequential recursion (fk_reference). The
+  level-parallel fk_levels gives the same products."""
+  return fk_reference(model, q, u)
+
+
+def fk_reference(model: RobotModel, q, u=None) -> KinData:
   """Forward kinematics by the per-body sequential recursion."""
   nb = model.nb
   if u is None:
@@ -110,6 +117,112 @@ def fk(model: RobotModel, q, u=None) -> KinData:
   return KinData(R=torch.stack(R_list, 1), p=torch.stack(p_list, 1),
                  S_w=torch.cat(Sw_rows, 1), vel6=torch.stack(vel6_w, 1),
                  Xup_E=torch.stack(Xup_E, 1), Xup_r=torch.stack(Xup_r, 1))
+
+
+def _fk_schedule(model: RobotModel):
+  """Static schedule: [level0, level1, ...], each level a list of
+  (joint_type, [body indices]) groups of bodies at one tree depth; and each
+  body's position in the accumulation order."""
+  nb = model.nb
+  depth = [0] * nb
+  for i in range(nb):
+    p = model.parent[i]
+    depth[i] = 0 if p < 0 else depth[p] + 1
+  levels, acc_pos, pos = [], [0] * nb, 0
+  for d in range(max(depth) + 1 if nb else 0):
+    groups = {}
+    for i in range(nb):
+      if depth[i] == d:
+        groups.setdefault(JointType(model.joint_types[i]), []).append(i)
+    level = sorted(groups.items())
+    for _, idxs in level:
+      for i in idxs:
+        acc_pos[i] = pos
+        pos += 1
+    levels.append(level)
+  return levels, acc_pos
+
+
+def _axis_angle_mats(axes, angs):
+  """Batched Rodrigues: unit axes (m, 3) and angles (B, m) -> (B, m, 3, 3)."""
+  K = sp.skew(axes)
+  s, c = torch.sin(angs)[..., None, None], torch.cos(angs)[..., None, None]
+  return torch.eye(3, dtype=axes.dtype, device=axes.device) + s * K + (1.0 - c) * (K @ K)
+
+
+def fk_levels(model: RobotModel, q, u=None) -> KinData:
+  """Level-parallel FK: the bodies of one tree depth and joint type move
+  together in grouped contractions; the same products as fk_reference."""
+  B, dtype, dev = q.shape[0], q.dtype, q.device
+  if u is None:
+    u = torch.zeros((B, model.nv), dtype=dtype, device=dev)
+  levels, acc_pos = _fk_schedule(model)
+  I3 = torch.eye(3, dtype=dtype, device=dev)
+  E_acc = r_acc = None          # (B, n_done, 3, 3) world->body, (B, n_done, 3) origins
+  upE_chunks, upr_chunks, S_chunks, S_dofs = [], [], [], []
+  for level in levels:
+    lev_E, lev_r = [], []
+    for jt, idxs in level:
+      m = len(idxs)
+      ii = torch.as_tensor(idxs, device=dev)
+      Xr, Xp = model.X_rot[ii].to(dtype), model.X_pos[ii].to(dtype)
+      qa = np.array([model.q_adr[i] for i in idxs])
+      Z = torch.zeros((B, m, 3), dtype=dtype, device=dev)
+      if jt == JointType.REVOLUTE:
+        axes = model.axis[ii].to(dtype)
+        EJ, rJ = _axis_angle_mats(axes, q[:, qa]).transpose(-1, -2), Z
+        S_chunks.append(torch.cat([axes, torch.zeros_like(axes)], 1).expand(B, m, 6)[:, :, None])
+      elif jt == JointType.PRISMATIC:
+        axes = model.axis[ii].to(dtype)
+        EJ, rJ = I3.expand(B, m, 3, 3), axes * q[:, qa][..., None]
+        S_chunks.append(torch.cat([torch.zeros_like(axes), axes], 1).expand(B, m, 6)[:, :, None])
+      elif jt == JointType.SPHERICAL:
+        R = sp.quat_to_mat(q[:, qa[:, None] + np.arange(4)[None]])
+        EJ, rJ = R.transpose(-1, -2), Z
+        S_chunks.append(torch.cat([I3, torch.zeros_like(I3)], 1).expand(B, m, 3, 6))
+      elif jt == JointType.FREE:
+        R = sp.quat_to_mat(q[:, qa[:, None] + 3 + np.arange(4)[None]])     # body->world
+        EJ, rJ = R.transpose(-1, -2), q[:, qa[:, None] + np.arange(3)[None]]
+        Srows = torch.zeros((B, m, 6, 6), dtype=dtype, device=dev)
+        Srows[..., :3, :3] = I3                    # u = [omega_body, v_world]
+        Srows[..., 3:, 3:] = R
+        S_chunks.append(Srows)
+      else:
+        raise NotImplementedError(jt)
+      for i in idxs:
+        S_dofs += list(range(model.v_adr[i], model.v_adr[i] + joint_nv(jt)))
+      # Xup = compose(X_J, X_tree): E = EJ Xr^T, r = Xp + Xr rJ
+      upE = EJ @ Xr.transpose(-1, -2)
+      upr = Xp + (Xr @ rJ[..., None])[..., 0]
+      upE_chunks.append(upE)
+      upr_chunks.append(upr)
+      parents = [model.parent[i] for i in idxs]
+      if all(p < 0 for p in parents):
+        E0, r0 = upE, upr
+      else:
+        pp = [acc_pos[p] for p in parents]
+        Ep, rp = E_acc[:, pp], r_acc[:, pp]
+        # compose(Xup, X0_parent): E = upE Ep, r = rp + Ep^T upr
+        E0, r0 = upE @ Ep, rp + (Ep.transpose(-1, -2) @ upr[..., None])[..., 0]
+      lev_E.append(E0)
+      lev_r.append(r0)
+    E_acc = torch.cat(([] if E_acc is None else [E_acc]) + lev_E, 1)
+    r_acc = torch.cat(([] if r_acc is None else [r_acc]) + lev_r, 1)
+  perm = list(acc_pos)                               # back to body order
+  E0, r0 = E_acc[:, perm], r_acc[:, perm]
+  upE, upr = torch.cat(upE_chunks, 1)[:, perm], torch.cat(upr_chunks, 1)[:, perm]
+  S_body = torch.cat([c.reshape(B, -1, 6) for c in S_chunks], 1)
+  dperm = np.zeros(model.nv, dtype=np.int64)
+  dperm[np.array(S_dofs)] = np.arange(model.nv)
+  S_body = S_body[:, dperm]
+  dof_body = _dof_body_map(model)
+  Ed, rd = E0[:, dof_body], r0[:, dof_body]
+  w_w = (S_body[..., None, :3] @ Ed)[..., 0, :]
+  v_w = (S_body[..., None, 3:] @ Ed)[..., 0, :] + sp.cross(rd, w_w)
+  S_w = torch.cat([w_w, v_w], -1)
+  mask = torch.as_tensor(ancestor_dof_mask(model), dtype=dtype, device=dev)
+  vel6 = torch.einsum("kj,bjc->bkc", mask, S_w * u[..., None])
+  return KinData(R=E0.transpose(-1, -2), p=r0, S_w=S_w, vel6=vel6, Xup_E=upE, Xup_r=upr)
 
 
 def ancestor_dof_mask(model: RobotModel) -> np.ndarray:
@@ -189,6 +302,77 @@ def rnea(model: RobotModel, q, u, qdd, gravity, f_ext_w=None):
 def nonlinearities(model, q, u, gravity, f_ext_w=None):
   """h(q, u) = C u + g - f_ext term."""
   return rnea(model, q, u, torch.zeros_like(u), gravity, f_ext_w)
+
+
+def _dof_body_map(model: RobotModel) -> np.ndarray:
+  """(nv,) static map: dof index -> owning body index."""
+  m = np.zeros(model.nv, dtype=np.int64)
+  for i in range(model.nb):
+    m[model.v_adr[i]:model.v_adr[i] + joint_nv(model.joint_types[i])] = i
+  return m
+
+
+def _sdot_mask(model: RobotModel) -> np.ndarray:
+  """(nv,) static: 1 where Sdot_w = v_body x_m S_w holds, 0 where S_w is
+  constant in world coords (the FREE joint's world-linear dofs)."""
+  m = np.ones(model.nv)
+  for i in range(model.nb):
+    if JointType(model.joint_types[i]) == JointType.FREE:
+      m[model.v_adr[i] + 3:model.v_adr[i] + 6] = 0.0
+  return m
+
+
+def nonlinearities_w(model, q, u, gravity, kin: KinData | None = None, f_ext_w=None):
+  """h(q, u) as batched world-frame contractions, the bias-force analog of
+  crba_w; equal to `nonlinearities`:
+
+      Sdot_w[j] = v_w[body(j)] x_m S_w[j]     (0 for FREE linear dofs)
+      a_w[b]    = [0; -g] + sum_{j in anc(b)} Sdot_w[j] u_j     (qdd = 0)
+      f_w[b]    = I_w[b] a_w[b] + v_w[b] x* (I_w[b] v_w[b]) - f_ext_w[b]
+      h[j]      = S_w[j] . sum_{b : j in anc(b)} f_w[b]
+
+  Pass `kin` to reuse FK products."""
+  if kin is None:
+    kin = fk(model, q, u)
+  dtype, dev = q.dtype, q.device
+  mask = torch.as_tensor(ancestor_dof_mask(model), dtype=dtype, device=dev)   # (nb, nv)
+  sdm = torch.as_tensor(_sdot_mask(model), dtype=dtype, device=dev)
+  Sd = sp.cross_motion(kin.vel6[:, _dof_body_map(model)], kin.S_w) * sdm[:, None]
+  a0 = torch.cat([torch.zeros(3, dtype=dtype, device=dev), -gravity.to(dtype)])
+  a = a0 + torch.einsum("kj,bjc->bkc", mask, Sd * u[..., None])              # (B, nb, 6)
+  Iw = inertia_world(model, kin)
+  Iv = (Iw @ kin.vel6[..., None])[..., 0]
+  f = (Iw @ a[..., None])[..., 0] + sp.cross_force(kin.vel6, Iv)
+  if f_ext_w is not None:
+    f = f - f_ext_w
+  return (kin.S_w * torch.einsum("kj,bkc->bjc", mask, f)).sum(-1)
+
+
+def crba(model: RobotModel, q):
+  """Composite-rigid-body algorithm: the symmetric positive definite mass
+  matrix M (B, nv, nv) by the Featherstone backward recursion."""
+  nb, B = model.nb, q.shape[0]
+  Xup, Ss = zip(*(_xup(model, i, q) for i in range(nb)))
+  Ic = [model.inertia[i].to(q.dtype).expand(B, 6, 6) for i in range(nb)]
+  M = torch.zeros((B, model.nv, model.nv), dtype=q.dtype, device=q.device)
+  for i in range(nb - 1, -1, -1):
+    p_idx = model.parent[i]
+    if p_idx >= 0:
+      Xm = sp.xform_motion_mat(Xup[i])
+      Ic[p_idx] = Ic[p_idx] + Xm.transpose(-1, -2) @ Ic[i] @ Xm
+    S = Ss[i]                                            # (B, nd, 6)
+    F = Ic[i] @ S.transpose(-1, -2)                      # (B, 6, nd)
+    va, nd = model.v_adr[i], S.shape[-2]
+    M[:, va:va + nd, va:va + nd] = S @ F
+    j = i
+    while model.parent[j] >= 0:
+      F = sp.xform_motion_mat(Xup[j]).transpose(-1, -2) @ F
+      j = model.parent[j]
+      vb, ndb = model.v_adr[j], Ss[j].shape[-2]
+      blk = (Ss[j] @ F).transpose(-1, -2)                # (B, nd, ndb)
+      M[:, va:va + nd, vb:vb + ndb] = blk
+      M[:, vb:vb + ndb, va:va + nd] = blk.transpose(-1, -2)
+  return M
 
 
 def inertia_world(model: RobotModel, kin: KinData):

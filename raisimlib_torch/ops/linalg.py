@@ -53,3 +53,8 @@ def solve_lower_t(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
   """Solve A X = B given A's lower Cholesky factor L."""
   return solve_lower_t(L, solve_lower(L, B))
+
+
+def spd_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+  """Solve SPD A X = B end to end (unrolled chol + substitutions)."""
+  return cho_solve(chol(A), B)

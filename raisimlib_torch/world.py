@@ -105,7 +105,8 @@ class World:
   def add_articulated_system(self, bodies: Sequence[dict], name: str = "robot",
                              geoms: Sequence[dict] = ()) -> ObjectHandle:
     """Add a robot from build_model-format body specs + collision geom dicts
-    (body (local index), gtype, params, offset_pos, offset_rot, material)."""
+    (body (local index), gtype, params, offset_pos, offset_rot, material,
+    and a mesh geom's vertices `mesh`)."""
     ofs = len(self._bodies)
     nq0, nv0 = self._nq, self._nv
     for b in bodies:
@@ -124,7 +125,7 @@ class World:
           params=np.resize(np.asarray(g.get("params", []), dtype=np.float64), 4),
           offset_pos=np.asarray(g.get("offset_pos", np.zeros(3)), dtype=np.float64),
           offset_rot=np.asarray(g.get("offset_rot", np.eye(3)), dtype=np.float64),
-          material=int(g.get("material", 0)), obj=obj))
+          material=int(g.get("material", 0)), obj=obj, mesh=g.get("mesh")))
     return h
 
   def _add_free_body(self, name: str, mass: float, inertia, pos, gtype: int, params,
@@ -466,6 +467,16 @@ class Scene:
     s = pipeline.step(self, State(q=q[None], u=state.u[None], t=state.t[None]),
                       tau[None], None if pd_target is None else pd_target[None],
                       f_ext_w=None if f_ext_w is None else f_ext_w[None])
+    return State(q=s.q[0], u=s.u[0], t=s.t[0])
+
+  def step_smooth(self, state: State, tau=None) -> State:
+    """One contact-free step of ONE world (integrator.step_smooth): ABA and
+    semi-implicit Euler, no collision."""
+    q = state.q
+    if tau is None:
+      tau = torch.zeros(self.model.nv, dtype=q.dtype, device=q.device)
+    s = integrator.step_smooth(self.model, State(q=q[None], u=state.u[None], t=state.t[None]),
+                               tau[None], self.gravity, self.dt)
     return State(q=s.q[0], u=s.u[0], t=s.t[0])
 
   def step_batch(self, state: State, tau=None, pd_target=None,

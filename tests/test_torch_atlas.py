@@ -20,18 +20,9 @@ import pytest
 import torch
 
 from torch_port_util import host_matches_twin, host_step, load_golden
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 B = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -16,16 +16,7 @@ import pytest
 import torch
 
 from torch_port_util import jax_record_keys
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread: the tensors are a few rows wide, and the test
-  workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 
 def test_cartpole_costs_match_jax_vmap():

@@ -23,18 +23,10 @@ from raisimlib_tpu.ops import constraints as jcs
 from raisimlib_tpu.ops import dynamics as jdyn
 from raisimlib_tpu.world import World as JWorld
 
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
+
 B = 8
 TOL = 1e-10
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def _build(W, **kw):

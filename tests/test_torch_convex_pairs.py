@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from torch_port_util import load_chip_smoke, port_scene
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 from raisimlib_tpu.ops import collision as jcoll
 from raisimlib_tpu.ops import dynamics as jdyn
@@ -55,16 +56,6 @@ KERNELS = {(BX, BX): jcoll._box_box, (C, C): jcoll._capsule_capsule,
            (S, CY): jcoll._sphere_cylinder, (S, M): jcoll._sphere_mesh,
            (S, S): jcoll._sphere_sphere, (S, BX): jcoll._sphere_box,
            (S, C): jcoll._sphere_capsule}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def _add_all(w):

@@ -23,6 +23,7 @@ import torch
 
 from torch_port_util import (anymal_factors, load_chip_smoke, load_golden, perturbed_states,
                              torch_anymal_scene)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.mark.cuda

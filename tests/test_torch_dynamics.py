@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from torch_port_util import jax_anymal_scene, torch_anymal_scene
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 TOL = 1e-10
 B = 5

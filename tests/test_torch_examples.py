@@ -22,18 +22,9 @@ import pytest
 import torch
 
 from torch_port_util import jax_record_keys
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def _jax_example(name):
@@ -196,8 +187,33 @@ def test_example_runs_on_the_cpu(name, tmp_path, monkeypatch):
     assert traj["q"].shape[0] == res["ticks"] == 1 and np.isfinite(traj["body_pos"]).all()
 
 
-def test_atlas_scaling_is_not_ported():
-  from raisimlib_torch.examples import atlas_batch
+def test_atlas_scaling_is_not_ported(tmp_path, monkeypatch):
+  """`--scaling` runs (the name is the test's history): run(smoke=True,
+  scaling=True, device="cpu") on one gloo rank that it forms and leaves
+  again, the scenario's smoke sizes cut to a few physics steps (the
+  ATLAS_SCALING_* overrides of the JAX example); one weak-scaling row,
+  efficiency 1, emitted as an atlas_weak_scaling record."""
+  import torch.distributed as dist
 
-  with pytest.raises(NotImplementedError, match="ROADMAP.md item 15"):
-    atlas_batch.run(scaling=True, device="cpu")
+  from raisimlib_torch import scenarios
+  from raisimlib_torch.examples import METRICS_DIR, atlas_batch
+
+  load = scenarios.load
+
+  def cut_load(n):
+    cfg = load(n)
+    cfg["run"].update({"smoke_batch": 2, "smoke_horizon": 1})
+    return cfg
+
+  monkeypatch.setattr(scenarios, "load", cut_load)
+  monkeypatch.setenv("ATLAS_SCALING_PER_DEV", "2")
+  monkeypatch.setenv("ATLAS_SCALING_H", "1")
+  monkeypatch.chdir(tmp_path)
+  res = atlas_batch.run(smoke=True, scaling=True, device="cpu",
+                        metrics_path=str(tmp_path / "atlas.jsonl"))
+  assert not dist.is_initialized()
+  rows = res["scaling"]
+  assert [r["n_devices"] for r in rows] == [1] and rows[0]["efficiency"] == 1.0
+  assert rows[0]["unit"] == "rollouts/s" and rows[0]["throughput"] > 0
+  with open(tmp_path / METRICS_DIR / "atlas_weak_scaling.jsonl") as f:
+    assert '"kind": "atlas_weak_scaling"' in f.read()

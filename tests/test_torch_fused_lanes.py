@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from torch_port_util import host_step, load_chip_smoke, load_golden, perturbed_states
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 CS = load_chip_smoke()
 TROT = load_golden("anymal_trot_heightmap.npz")
@@ -30,16 +31,6 @@ B = 8
 # operations and height loads per world of each scene's source (chip_smoke.py)
 TALLIES = {"flat": (337307, 0), "terrain": (345175, 304), "stack": (239231, 0),
            "cylinder": (141207, 24), "cone": (94291, 16), "rock": (99738, 128)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def _scene(name):

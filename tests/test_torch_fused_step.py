@@ -28,6 +28,7 @@ import torch
 
 from torch_port_util import (flatten_jax_scene, host_matches_twin, host_step, jax_anymal_scene,
                              load_golden, perturbed_states, torch_anymal_scene)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 from raisimlib_tpu.models.model import JointType
 from raisimlib_tpu.world import World as JWorld

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from torch_port_util import load_golden, torch_anymal_scene
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 
 def _replay(batched):

@@ -4,6 +4,8 @@ chip_smoke.py applies on the card (raisimlib_torch/utils/parity.py)."""
 
 from test_torch_golden import _replay
 
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
+
 
 def test_step_batch_replays_golden_f32():
   """The batched step (the kernel's plain twin on the CPU): the reference gate

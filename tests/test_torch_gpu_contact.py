@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
+
 
 TOL = 3e-5
 

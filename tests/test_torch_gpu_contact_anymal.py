@@ -6,6 +6,7 @@ on lam, 2.1e-6 on u)."""
 
 from test_torch_gpu_contact import TOL, _compare
 from torch_port_util import anymal_factors
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 
 def test_plain_twin_matches_tpu_kernel_anymal_layout():

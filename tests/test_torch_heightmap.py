@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from torch_port_util import flatten_jax_scene
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 from raisimlib_tpu.models.model import JointType
 from raisimlib_tpu.ops import collision as jcoll

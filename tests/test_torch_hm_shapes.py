@@ -29,6 +29,7 @@ import torch
 
 from torch_port_util import (DEBRIS_FIELD, MODEL_FIELDS, debris_drop_states, debris_max_depth,
                              jax_debris_rollout, jax_debris_scene, load_chip_smoke, port_scene)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 from raisimlib_tpu.ops import collision as jcoll
 from raisimlib_tpu.ops import dynamics as jdyn
@@ -39,16 +40,6 @@ B, STEPS = 4, 4
 NX, NY = DEBRIS_FIELD["shape"]
 SHAPES = ("cylinder", "cone", "mesh")
 CS = load_chip_smoke()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 # ---- the mesh tables ----------------------------------------------------------------

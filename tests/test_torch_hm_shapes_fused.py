@@ -25,21 +25,12 @@ import torch
 
 from torch_port_util import (debris_drop_states, debris_max_depth, host_matches_twin, host_step,
                              jax_debris_rollout, jax_debris_scene, port_scene)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 B, STEPS = 4, 4
 SHAPES = ("cylinder", "cone", "mesh")
 KINDS = {"cylinder": ["hm_cylpt"] * 6, "cone": ["hm_conept"] * 4, "mesh": ["hm_mesh"] * 4}
 SEEDS = {"cylinder": 31, "cone": 32, "mesh": 33}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

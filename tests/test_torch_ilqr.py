@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from torch_port_util import load_golden
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 # the module (raisimlib_tpu.mpc exports the function `ilqr` under its name)
 jilqr = importlib.import_module("raisimlib_tpu.mpc.ilqr")
@@ -27,16 +28,6 @@ A = np.array([[1.0, DT], [0.0, 1.0]])
 Bm = np.array([[0.0], [DT]])
 X0S = np.array([[1.0, 0.0], [-0.5, 0.3], [0.2, -0.8]])
 E, H = 3, 40
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread: the tensors are a few rows wide, and the test
-  workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 # ---- the problems, in both packages ----------------------------------------------------

@@ -19,18 +19,9 @@ import pytest
 import torch
 
 from torch_port_util import flatten_jax_scene
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 jilqr = importlib.import_module("raisimlib_tpu.mpc.ilqr")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread: the tensors are a few rows wide, and the test
-  workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def test_jvp_jacobians_of_the_resting_sphere_match_jax():

@@ -10,6 +10,8 @@ import sys
 import pytest
 import torch
 
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "flax", "raisimlib_tpu")
 
@@ -26,7 +28,12 @@ def test_import_loads_no_jax():
           "raisimlib_torch.examples.atlas_batch, raisimlib_torch.examples.replay, "
           "raisimlib_torch.examples.sphere_box_stack, raisimlib_torch.examples.cartpole_swingup, "
           "raisimlib_torch.mpc, raisimlib_torch.mpc.ilqr, raisimlib_torch.mpc.smooth, "
-          "raisimlib_torch.mpc.balance_ilqr, raisimlib_torch.models.primitives\n"
+          "raisimlib_torch.mpc.balance_ilqr, raisimlib_torch.models.primitives, "
+          "raisimlib_torch.parallel, raisimlib_torch.parallel.mesh, "
+          "raisimlib_torch.parallel.sharded, raisimlib_torch.parallel.multishoot, "
+          "raisimlib_torch.parallel.qp_shard, raisimlib_torch.parallel.scaling, "
+          "raisimlib_torch.utils.checkpoint, raisimlib_torch.utils.profiling, "
+          "raisimlib_torch.utils.tree\n"
           f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
           "print(bad); sys.exit(1 if bad else 0)")
   env = dict(os.environ, PYTHONPATH=REPO)

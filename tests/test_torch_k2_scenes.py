@@ -22,18 +22,9 @@ import pytest
 import torch
 
 from torch_port_util import k2_scene_errors, k2_scene_runs
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 PURE, ONE32, TWIN = (1e-8, 1e-8), (1e-6, 2e-4), (1e-6, 1e-3)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name, cut", [("tower", None), ("pile", 4), ("trio", None)])

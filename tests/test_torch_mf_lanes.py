@@ -35,22 +35,13 @@ import pytest
 import torch
 
 from torch_port_util import anymal_factors, host_mf
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 from raisimlib_torch import _build
 from raisimlib_torch.ops import contact as ct
 from raisimlib_torch.ops import gpu_contact as gc
 
 LANE_COUNTS = [4, 8, 16]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,7 @@ import torch
 
 from torch_port_util import (MODEL_FIELDS, flatten_jax_scene, jax_anymal_scene,
                              torch_anymal_scene)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 
 @pytest.fixture(scope="module")
@@ -62,12 +63,15 @@ def test_scene_from_numpy_matches_world_compile(scenes):
 
 
 def test_mesh_geometry_raises():
+  """A mesh collision geom whose file is missing warns and is dropped, as in
+  the JAX package (the loader is ported; the name is the test's history)."""
   from raisimlib_torch.models.urdf import load_urdf
 
   urdf = ('<robot name="m"><link name="a"><collision><geometry>'
-          '<mesh filename="x.obj"/></geometry></collision></link></robot>')
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    load_urdf(urdf)
+          '<mesh filename="no_such_file.obj"/></geometry></collision></link></robot>')
+  with pytest.warns(UserWarning, match="unsupported collision geometry on link a"):
+    bodies, geoms, _ = load_urdf(urdf)
+  assert geoms == [] and len(bodies) == 1
 
 
 def _prims_world(pkg, dtype):

@@ -11,6 +11,7 @@ import torch
 
 from torch_port_util import (jax_anymal_scene, load_golden, perturbed_states,
                              torch_anymal_scene)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 E, K, H = 2, 8, 3
 TEMP, SIGMA = 0.3, 0.1

@@ -16,6 +16,8 @@ import torch
 from raisimlib_tpu.ops import collision as jc
 from raisimlib_torch.ops import collision as tc
 
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
+
 TOL = 1e-12     # f64: the same formulas, summed in another order at most
 
 

@@ -13,21 +13,12 @@ import pytest
 import torch
 
 from torch_port_util import MODEL_FIELDS, jax_anymal_scene, torch_anymal_scene
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 TOL = 1e-10
 B = 4
 G = np.array([0.0, 0.0, -9.81])
 PRIMITIVES = ("pendulum", "double_pendulum", "cartpole", "free_box", "free_sphere")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread: the tensors are a few worlds wide, and the test
-  workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def _flatten_model(m):

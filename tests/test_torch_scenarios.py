@@ -21,21 +21,12 @@ import torch
 import yaml
 
 from torch_port_util import GOLDEN_DIR, MODEL_FIELDS
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(glob.glob(os.path.join(REPO, "raisimlib_tpu", "scenarios", "*.yaml")))
 NAMES = [os.path.basename(p)[:-5] for p in YAMLS]
 BUILT = ["anymal_balance", "anymal_trot_heightmap", "sphere_box_stack", "atlas_batch"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a world or two
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def test_every_scenario_has_a_copy():

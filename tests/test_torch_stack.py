@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from torch_port_util import MODEL_FIELDS, flatten_jax_scene, host_step, load_golden
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

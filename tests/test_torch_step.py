@@ -10,6 +10,7 @@ import torch
 
 from torch_port_util import (jax_anymal_scene, load_golden, perturbed_states,
                              torch_anymal_scene)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 B, N = 4, 5
 

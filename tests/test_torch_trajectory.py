@@ -19,16 +19,7 @@ import pytest
 import torch
 
 from torch_port_util import GOLDEN_DIR
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a world wide, and
-  the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 
 def _drop_scene():

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from torch_port_util import MODEL_FIELDS
+from torch_port_util import one_thread  # noqa: F401  (a module fixture)
 
 from raisimlib_tpu.world import World as JWorld
 
@@ -29,16 +30,6 @@ DUMBBELL = [dict(type="sphere", params=[0.05], pos=(-0.1, 0.0, 0.0)),
 MIXED = [dict(type="box", params=[0.1, 0.05, 0.02], pos=(0.0, 0.0, -0.05), material=1),
          dict(type="cylinder", params=[0.03, 0.08], pos=(0.05, 0.02, 0.04)),
          dict(type="sphere", params=[0.04], pos=(-0.06, 0.0, 0.05))]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-  """One intra-op thread for this module: its tensors are a few worlds
-  wide, and the test workers share the machine's cores."""
-  n = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(n)
 
 
 def _build(W, full=True, **kw):

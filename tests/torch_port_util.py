@@ -16,6 +16,17 @@ MODEL_FIELDS = ("X_rot", "X_pos", "axis", "inertia", "mass", "actuated",
                 "torque_limit", "joint_lo", "joint_hi", "q_init")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+  """One intra-op torch thread for the test module that imports this
+  fixture: the port's tests run a few worlds at a time, and the test
+  workers share the machine's cores."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(n)
+
+
 def load_golden(name="anymal_balance.npz"):
   return np.load(os.path.join(GOLDEN_DIR, name))
 
