@@ -162,8 +162,9 @@ size 1, through their public entry points:
       Atlas's K1 launched once per step of the example and of the row's
       warm-up and timed repeats;
   47. utils.checkpoint of a B = 16384 card State, restored bitwise;
-  48. utils.profiling.time_call and trace of one K1 launch (the trace must
-      name the kernel), and tune_sweeps on the ANYmal scene.
+  48. utils.profiling.trace of one K1 launch (the trace must name the
+      kernel and the `k1.step` and `k1.enqueue` spans), and tune_sweeps on
+      the ANYmal scene.
 
 Both launch counters are set to 0 just before phases 3, 4, 8, 9, 14, 15, 20,
 24, 30-35, 37, 38-41 and 42-44, 46 and read just after: each path must launch its own kernel
@@ -2395,27 +2396,27 @@ def run_parallel(torch, gs, gc, scene, s0, pd, H, t_roll1, il_step, card):
   rec["checkpoint"] = {"bytes": size, "seconds": t_ck}
 
   # ---- 48. profiling -------------------------------------------------------------------------------
-  note(f"phase 48: utils.profiling.time_call and trace on one K1 launch (B={B}), and "
+  note(f"phase 48: utils.profiling.trace on one K1 launch (B={B}), and "
        "tune_sweeps on the ANYmal scene (K2 path, 256 perturbed standing states)")
   with torch.inference_mode():
-    tm = profiling.time_call(k1, s0, zero, pd, iters=5)
     logdir = os.path.join(out_dir, "chip_smoke_trace")
     profiling.trace(k1, s0, zero, pd, logdir=logdir)
     trace_file = os.path.join(logdir, "trace.json")
     with open(trace_file) as f:
-      named = "fused_step_kernel" in f.read()
+      text = f.read()
+    named = all(x in text for x in ("fused_step_kernel", '"k1.step"', '"k1.enqueue"'))
     kern = [e for e in profiling.trace.last.key_averages() if "fused_step_kernel" in e.key]
     dev_us = sum(getattr(e, "device_time_total", 0) for e in kern)
     size = os.path.getsize(trace_file)
     if not named or not kern:
-      fail(f"the profiler's trace ({trace_file}, {size} B) does not name K1's kernel")
+      fail(f"the profiler's trace ({trace_file}, {size} B) does not name K1's kernel and "
+           "its k1.step and k1.enqueue spans")
     st, pdt, _ = standing_states(torch, scene, 256, seed=48)
     sweeps, err = profiling.tune_sweeps(scene, st, torch.zeros_like(pdt), pdt)
-  note(f"  time_call: first {1e3 * tm['first_s']:.3f} ms, best {1e3 * tm['best_s']:.3f} ms, "
-       f"mean {1e3 * tm['mean_s']:.3f} ms; trace {size} B names K1's kernel "
+  note(f"  trace {size} B names K1's kernel and its spans "
        f"({kern[0].key[:60]}), {dev_us / 1e3:.3f} ms of device time; tune_sweeps -> {sweeps} "
        f"sweeps (one-step max |du| {err:.2e} against 48 sweeps)")
-  rec["profiling"] = {"time_call": tm, "trace_bytes": size, "k1_device_ms": dev_us / 1e3,
+  rec["profiling"] = {"trace_bytes": size, "k1_device_ms": dev_us / 1e3,
                       "tune_sweeps": [sweeps, err]}
   dist.destroy_process_group()
   rec["phase_seconds"] = time.perf_counter() - t_phase

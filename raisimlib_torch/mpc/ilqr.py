@@ -16,9 +16,10 @@ independent problems share each phase's physics batch:
     batched costs, vmapped over rows;
   * the Riccati pass is a reversed loop over H on (E, ., .) matrices.
 
-Each phase of a solve runs in a torch.profiler range (`ilqr.rollout`,
+Each phase of a solve runs in a span of utils/profiling.py (`ilqr.rollout`,
 `ilqr.dynamics_jacobians`, `ilqr.cost_derivatives`, `ilqr.riccati`,
-`ilqr.line_search`), which tools/profile_ilqr.py reads.
+`ilqr.line_search`), a torch.profiler range of that name when the profiler
+records, which tools/profile_ilqr.py reads.
 
 Costs are batched, as the port's MPPI takes them:
 `running_cost(X (N, nx), U (N, nu), t (N,)) -> (N,)` and
@@ -37,7 +38,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.autograd.forward_ad as fwAD
-from torch.profiler import record_function
+
+from raisimlib_torch.utils import profiling
 
 DERIV_PATHS = ("jvp", "fd")
 
@@ -241,7 +243,7 @@ def ilqr_batch(
     costs = traj_cost(Xc, Uc)
     return Xc.reshape(E, nA, H + 1, nx), Uc.reshape(E, nA, H, nu), costs.reshape(E, nA)
 
-  with torch.no_grad(), record_function("ilqr.rollout"):
+  with torch.no_grad(), profiling.span("ilqr.rollout"):
     X = rollout(x0s, U0s)
     cost = traj_cost(X, U0s)
   U = U0s
@@ -252,22 +254,22 @@ def ilqr_batch(
   rows = torch.arange(E, device=dev)
   for it in range(config.iters):
     Xf, Uf = X[:, :-1].reshape(E * H, nx), U.reshape(E * H, nu)
-    with record_function("ilqr.dynamics_jacobians"):
+    with profiling.span("ilqr.dynamics_jacobians"):
       if config.deriv == "fd":
         with torch.no_grad():
           fx, fu = batched_dyn_jacobians_fd(dyn_fast, Xf, Uf, 0, config.fd_eps,
                                             config.fd_order)
       else:
         fx, fu = batched_dyn_jacobians(dyn_diff, Xf, Uf, 0)
-    with record_function("ilqr.cost_derivatives"):
+    with profiling.span("ilqr.cost_derivatives"):
       Zf, tf = torch.cat([Xf, Uf], 1), ts.repeat(E)
       cz = cz_fn(Zf, tf).reshape(E, H, nx + nu)
       czz = czz_fn(Zf, tf).reshape(E, H, nx + nu, nx + nu)
       Vx, Vxx = vx_fn(X[:, -1]), vxx_fn(X[:, -1])
-    with record_function("ilqr.riccati"):
+    with profiling.span("ilqr.riccati"):
       ks, Ks, ok = _riccati(fx.reshape(E, H, nx, nx), fu.reshape(E, H, nx, nu), cz, czz,
                             Vx, Vxx, reg, nx)
-    with torch.no_grad(), record_function("ilqr.line_search"):
+    with torch.no_grad(), profiling.span("ilqr.line_search"):
       Xs, Us, costs = line_search(X, U, ks, Ks)
     best = torch.argmin(costs, 1)          # the first minimum; a NaN candidate wins, and
     cbest = costs[rows, best]              # then fails the finiteness test below

@@ -15,6 +15,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from raisimlib_torch.utils import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class MPPIConfig:
@@ -71,50 +73,61 @@ def mppi_step_batch(
   terrain heights (E, nx, ny)), is repeated over each environment's K
   samples and passed on as `dyn_b(X, A, t, ctx)`, `running_cost(X, A, t,
   ctx)` and `final_cost(X, ctx)`."""
-  E, H, nu = Us.shape
-  if eps_white is None:
-    eps_white = _draw(generator, config, (E, config.n_samples, H, nu), Us)
-  ctx = () if env_ctx is None else (env_ctx.repeat_interleave(config.n_samples, 0),)
-  U_new, costs = _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config,
-                                ctx)
-  return MPPISolution(U=U_new, cost=costs[:, 0], best_cost=costs.min(1).values)
+  E, H, _ = Us.shape
+  with profiling.span("mppi.update", E=E, K=config.n_samples, H=H):
+    U_new, costs = _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white,
+                                  config, generator, env_ctx)
+    return MPPISolution(U=U_new, cost=costs[:, 0], best_cost=costs.min(1).values)
 
 
 def _rollout_costs(dyn_b, running_cost, final_cost, X, U, ctx=()):
   """(N,) costs of N plans U (N, H, nu) from X (N, nx), in one physics batch."""
   acc = torch.zeros(X.shape[0], dtype=U.dtype, device=U.device)
   for t in range(U.shape[1]):
-    acc = acc + running_cost(X, U[:, t], t, *ctx)
+    with profiling.span("mppi.cost"):
+      acc = acc + running_cost(X, U[:, t], t, *ctx)
     X = dyn_b(X, U[:, t], t, *ctx)
-  return acc + final_cost(X, *ctx)
+  with profiling.span("mppi.cost"):
+    return acc + final_cost(X, *ctx)
 
 
-def _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config, ctx=()):
+def _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config,
+                   generator=None, env_ctx=None):
   """The E * K sample rollouts in one physics batch (sample 0 of each
   environment the unperturbed plan) and the weighted (or elite) average:
-  (U_new (E, H, nu), costs (E, K))."""
+  (U_new (E, H, nu), costs (E, K)). Without `eps_white` the white noise is
+  drawn from `generator`; `env_ctx` is repeated over each environment's
+  samples."""
   E, H, nu = Us.shape
   K = config.n_samples
-  eps = _colorize(eps_white, config.smooth)
-  eps[:, 0] = 0.0
-  Usamp = Us[:, None] + eps                               # (E, K, H, nu)
-  X = x0s[:, None, :].expand(E, K, x0s.shape[-1]).reshape(E * K, -1)
+  with profiling.span("mppi.noise"):
+    if eps_white is None:
+      eps_white = _draw(generator, config, (E, K, H, nu), Us)
+    eps = _colorize(eps_white, config.smooth)
+    eps[:, 0] = 0.0
+    Usamp = Us[:, None] + eps                             # (E, K, H, nu)
+    X = x0s[:, None, :].expand(E, K, x0s.shape[-1]).reshape(E * K, -1)
+    ctx = () if env_ctx is None else (env_ctx.repeat_interleave(K, 0),)
   costs = _rollout_costs(dyn_b, running_cost, final_cost, X, Usamp.reshape(E * K, H, nu),
                          ctx).reshape(E, K)
-  if config.n_elite > 0:
-    top = torch.topk(-costs, config.n_elite, dim=1).indices
-    return torch.take_along_dim(Usamp, top[:, :, None, None], 1).mean(1), costs
-  w = torch.exp(-(costs - costs.min(1, keepdim=True).values) / config.temperature)
-  return torch.einsum("ek,ekhu->ehu", w / w.sum(1, keepdim=True), Usamp), costs
+  with profiling.span("mppi.weights"):
+    if config.n_elite > 0:
+      top = torch.topk(-costs, config.n_elite, dim=1).indices
+      return torch.take_along_dim(Usamp, top[:, :, None, None], 1).mean(1), costs
+    w = torch.exp(-(costs - costs.min(1, keepdim=True).values) / config.temperature)
+    return torch.einsum("ek,ekhu->ehu", w / w.sum(1, keepdim=True), Usamp), costs
 
 
-def _mppi_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config):
+def _mppi_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config, generator=None):
   """mppi_step of E problems at once: the E * K samples in one physics
   batch, then the E updated plans in another. Returns an MPPISolution with
   an E axis; `cost` is the updated plan's."""
-  U_new, costs = _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white, config)
-  cost_new = _rollout_costs(dyn_b, running_cost, final_cost, x0s, U_new)
-  return MPPISolution(U=U_new, cost=cost_new, best_cost=costs.min(1).values)
+  E, H, _ = Us.shape
+  with profiling.span("mppi.update", E=E, K=config.n_samples, H=H):
+    U_new, costs = _sample_update(dyn_b, running_cost, final_cost, x0s, Us, eps_white,
+                                  config, generator)
+    cost_new = _rollout_costs(dyn_b, running_cost, final_cost, x0s, U_new)
+    return MPPISolution(U=U_new, cost=cost_new, best_cost=costs.min(1).values)
 
 
 def mppi_step(
@@ -133,11 +146,8 @@ def mppi_step(
   white noise, or drawn from `generator`. Unlike mppi_step_batch's, the
   returned `cost` is the cost of the UPDATED plan, one more rollout, as in
   the JAX package."""
-  H, nu = U.shape
-  if eps_white is None:
-    eps_white = _draw(generator, config, (config.n_samples, H, nu), U)
-  sol = _mppi_update(dyn_b, running_cost, final_cost, x0[None], U[None], eps_white[None],
-                     config)
+  sol = _mppi_update(dyn_b, running_cost, final_cost, x0[None], U[None],
+                     None if eps_white is None else eps_white[None], config, generator)
   return MPPISolution(*(x[0] for x in sol))
 
 
@@ -165,12 +175,10 @@ def receding_horizon(
   x0s, Us = (x0[None], U0[None]) if one else (x0, U0)
   if eps_white is not None and one:
     eps_white = eps_white[None]
-  E, H, nu = Us.shape
   trace = []
   for i in range(n_iters):
-    e = (_draw(generator, config, (E, config.n_samples, H, nu), Us) if eps_white is None
-         else eps_white[:, i])
-    sol = _mppi_update(dyn_b, running_cost, final_cost, x0s, Us, e, config)
+    e = None if eps_white is None else eps_white[:, i]
+    sol = _mppi_update(dyn_b, running_cost, final_cost, x0s, Us, e, config, generator)
     Us = sol.U
     trace.append(sol.cost)
   trace = torch.stack(trace, 1)

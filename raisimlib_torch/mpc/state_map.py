@@ -14,6 +14,7 @@ import torch
 
 from raisimlib_torch.ops import gpu_step, pipeline
 from raisimlib_torch.ops.integrator import State
+from raisimlib_torch.utils import profiling
 
 FUSED_MODES = ("auto", "require", "never")
 
@@ -103,12 +104,13 @@ def make_contact_dyn_batch(scene, control_dt: float, substeps: int,
 
   def dyn_b(X, A, t, ctx=None):
     B = X.shape[0]
-    s = State(q=X[:, :nq], u=X[:, nq:], t=torch.zeros(B, dtype=X.dtype, device=X.device))
-    full = torch.zeros((B, model.nv), dtype=X.dtype, device=X.device)
-    full[:, act_idx] = A
-    zeros_tau = torch.zeros_like(full)
-    for _ in range(substeps):
-      s = step(s, zeros_tau, full, ctx) if use_pd else step(s, full, None, ctx)
-    return torch.cat([s.q, s.u], 1)
+    with profiling.span("dyn.call", B=B, substeps=substeps):
+      s = State(q=X[:, :nq], u=X[:, nq:], t=torch.zeros(B, dtype=X.dtype, device=X.device))
+      full = torch.zeros((B, model.nv), dtype=X.dtype, device=X.device)
+      full[:, act_idx] = A
+      zeros_tau = torch.zeros_like(full)
+      for _ in range(substeps):
+        s = step(s, zeros_tau, full, ctx) if use_pd else step(s, full, None, ctx)
+      return torch.cat([s.q, s.u], 1)
 
   return dyn_b, model.nq + model.nv, nu

@@ -76,6 +76,7 @@ from raisimlib_torch.ops import collision as coll
 from raisimlib_torch.ops import constraints as cs
 from raisimlib_torch.ops import dynamics, gpu_contact, pipeline
 from raisimlib_torch.ops.integrator import State
+from raisimlib_torch.utils import profiling
 
 
 class FusedStepUnsupported(Exception):
@@ -1939,10 +1940,11 @@ class FusedKernel:
     qo = torch.empty_like(q)
     uo = torch.empty_like(u)
     lib = _build.load(self.name)
-    rc = lib.fused_step_launch(q.data_ptr(), u.data_ptr(), tau.data_ptr(),
-                               pd.data_ptr() if pd is not None else None,
-                               hts, stride, qo.data_ptr(), uo.data_ptr(), B,
-                               torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with profiling.span("k1.enqueue", B=B):
+      rc = lib.fused_step_launch(q.data_ptr(), u.data_ptr(), tau.data_ptr(),
+                                 pd.data_ptr() if pd is not None else None,
+                                 hts, stride, qo.data_ptr(), uo.data_ptr(), B, stream)
     if rc != 0:
       raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
     make_step_batch_fused.launches += 1
@@ -2007,12 +2009,13 @@ class FusedStep:
     return field_heights
 
   def __call__(self, state: State, tau, pd_target=None, field_heights=None) -> State:
-    pd = pd_target if self.use_pd else None
-    if self.use_pd and pd is None:
-      raise ValueError("this fused step was built with use_pd=True: pass pd_target")
-    hts = self.heights(state.q, field_heights)
-    q, u = _FusedFn.apply(state.q, state.u, tau, pd, hts, self)
-    return State(q=q, u=u, t=state.t + self.sd.dt)
+    with profiling.span("k1.step", B=state.q.shape[0]):
+      pd = pd_target if self.use_pd else None
+      if self.use_pd and pd is None:
+        raise ValueError("this fused step was built with use_pd=True: pass pd_target")
+      hts = self.heights(state.q, field_heights)
+      q, u = _FusedFn.apply(state.q, state.u, tau, pd, hts, self)
+      return State(q=q, u=u, t=state.t + self.sd.dt)
 
 
 def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:

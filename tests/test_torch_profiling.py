@@ -8,8 +8,8 @@
     reference and one candidate that misses the tolerance (its fallback:
     each candidate is a JAX compile of seconds); the port alone then walks
     a ladder of candidates to the first that meets it;
-  * time_call (the JAX package's time_jitted) and trace on the CPU: the
-    first call timed apart, a Chrome trace written after one warm-up call.
+  * trace on the CPU (time_call is gone): a Chrome trace written after one
+    warm-up call, the call's result returned, the profile kept.
 """
 
 import json
@@ -71,15 +71,17 @@ def test_tune_sweeps_matches_jax():
 
 
 def test_time_call_and_trace(tmp_path):
+  """`trace` alone: the best-of-N `time_call` that stood beside it is gone
+  (portbench/ times the port)."""
   x = torch.randn(64, 64)
+  calls = []
 
   def f(a):
+    calls.append(1)
     return (a @ a).relu().sum()
 
-  t = profiling.time_call(f, x, iters=3)
-  assert set(t) == {"first_s", "best_s", "mean_s", "runs"} and len(t["runs"]) == 3
-  assert 0 < t["best_s"] <= t["mean_s"]
   out = profiling.trace(f, x, logdir=str(tmp_path / "trace"))
+  assert len(calls) == 2                               # one warm-up call, one traced
   assert float(out) == float(f(x))
   with open(tmp_path / "trace" / "trace.json") as fh:
     events = json.load(fh)["traceEvents"]

@@ -12,7 +12,7 @@ prints: the traced solve's wall time (the profiler slows the host), the
 summed device time of all kernels, the device's idle share, kernel
 launches, fused-step launches and host synchronisations; for each phase range of ilqr_batch (ilqr.rollout,
 ilqr.dynamics_jacobians, ilqr.cost_derivatives, ilqr.riccati,
-ilqr.line_search) its host time and its span on the device; the kernels
+ilqr.line_search) its host time and the device time of its kernels; the kernels
 that take the most device time and the host operations that take the most
 host time. With `--sync-debug` it then solves once more under
 torch.cuda.set_sync_debug_mode("warn") and prints where the host
@@ -69,8 +69,7 @@ def main():
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     wall, _ = solve(2)
   events = prof.key_averages()
-  # kernels only: each profiler range also shows on the device's timeline,
-  # as the span from its first kernel to its last
+  # kernels only (the phase ranges are host events)
   dev = [e for e in events if getattr(e, "device_time_total", 0) > 0
          and e.device_type == torch.autograd.DeviceType.CUDA and e.key not in RANGES]
   dev_us = sum(e.device_time_total for e in dev)
@@ -81,7 +80,7 @@ def main():
         f"fused-step launches); traced wall {1e3 * wall:.1f} ms, device {dev_us / 1e3:.1f} ms, "
         f"idle share {1.0 - dev_us / 1e6 / wall:.3f}, kernel launches {launches}, "
         f"synchronising copies and syncs {syncs}")
-  print("phase ranges (host time inclusive; on the device, the span of the range's kernels):")
+  print("phase ranges (host time inclusive; device time of the kernels launched inside):")
   for key in RANGES:
     rs = [e for e in events if e.key == key]
     print(f"  {key:26s} host {sum(e.cpu_time_total for e in rs) / 1e3:9.1f} ms  device "
