@@ -385,16 +385,20 @@ def check_against_k2(torch, scene, step, s, tau, pd, label, hts=None, share=0.0)
 
 # batches whose last warp holds fewer worlds than it has room for (a warp
 # holds 32 // gpu_step.LANES worlds; a world past B runs on a clamped index and
-# stores nothing)
+# stores nothing); on an H100 they take the wide build (gpu_step.lanes_for)
 TAIL_BATCHES = (1, 3, 383)
 
 
 def check_tails(torch, step, s, tau, pd, label, hts=None, ceiling_share=0.0):
   """K1 on the first TAIL_BATCHES worlds of s: each tail within
   check_fused's tiers of the twin and bitwise equal to the same worlds of
-  the batch s; and s launched twice, bitwise equal (the lanes of a world
-  share its memory: a race would show as a difference). Returns the max abs
-  error against the twin."""
+  the batch s, both as launched (the build the width rule takes for the
+  tail: the wide one on an H100, where s takes the narrow one) and through
+  the narrow build (gpu_step.LANES lanes, its last warp partly empty); and s
+  launched twice, bitwise equal (the lanes of a world share its memory: a
+  race would show as a difference). Returns the max abs error against the
+  twin."""
+  from raisimlib_torch.ops import gpu_step as gs
   from raisimlib_torch.ops.integrator import State
 
   full = step(s, tau, pd, field_heights=hts)
@@ -402,25 +406,37 @@ def check_tails(torch, step, s, tau, pd, label, hts=None, ceiling_share=0.0):
   torch.cuda.synchronize()
   if not (torch.equal(full.q, again.q) and torch.equal(full.u, again.u)):
     fail(f"{label}: two launches on the same inputs differ")
-  err = 0.0
+  B = s.q.shape[0]
+  err, widths = 0.0, []
   for b in TAIL_BATCHES:
     cut = lambda x: None if x is None else x[:b]    # noqa: E731
-    e, sk = check_fused(torch, step, State(q=s.q[:b], u=s.u[:b], t=s.t[:b]), tau[:b], cut(pd),
-                        f"{label}, B={b}", cut(hts), ceiling_share)
-    if not (torch.equal(sk.q, full.q[:b]) and torch.equal(sk.u, full.u[:b])):
-      fail(f"{label}, B={b}: the tail's worlds differ from the same worlds of B={s.q.shape[0]}")
+    sb = State(q=s.q[:b], u=s.u[:b], t=s.t[:b])
+    e, sk = check_fused(torch, step, sb, tau[:b], cut(pd), f"{label}, B={b}", cut(hts),
+                        ceiling_share)
+    lanes = step.kernel.lanes(b, s.q.device)
+    narrow = step.kernel.launch_build(gs.LANES, sb.q, sb.u, tau[:b], cut(pd),
+                                      step.heights(sb.q, cut(hts)))
+    torch.cuda.synchronize()
+    for got, how in (((sk.q, sk.u), f"as launched ({lanes} lanes)"),
+                     (narrow, f"at {gs.LANES} lanes")):
+      if not (torch.equal(got[0], full.q[:b]) and torch.equal(got[1], full.u[:b])):
+        fail(f"{label}, B={b}: the tail's worlds {how} differ from the same worlds of B={B}")
+    widths.append(lanes)
     err = max(err, e)
-  note(f"  {label}: B={s.q.shape[0]} twice, bitwise equal; B={TAIL_BATCHES} bitwise equal to "
-       f"their worlds in it")
+  note(f"  {label}: B={B} ({step.kernel.lanes(B, s.q.device)} lanes) twice, bitwise equal; "
+       f"B={TAIL_BATCHES} bitwise equal to their worlds in it, as launched ({widths} lanes) "
+       f"and at {gs.LANES} lanes")
   return err
 
 
 def source_figures(gs, _build, kern):
   """What ptxas said about a fused-step source (registers, stack, spills,
   static shared memory) and the block's shared memory, lanes and minimum
-  blocks per SM."""
+  blocks per SM; and the same of its wide build (gpu_step.WIDE lanes)."""
+  wide = dict(_build.ptxas_figures(kern.names[gs.WIDE]), lanes=gs.WIDE,
+              min_blocks=gs.min_blocks(kern.sd, gs.WIDE))
   return dict(_build.ptxas_figures(kern.name), smem_block_bytes=kern.smem_bytes,
-              lanes=gs.LANES, min_blocks=gs.min_blocks(kern.sd))
+              lanes=gs.LANES, min_blocks=gs.min_blocks(kern.sd), wide=wide)
 
 
 K1B_KINDS = ("ss", "sb", "sc")
@@ -2498,7 +2514,7 @@ def main():
                  for n, st in scen_steps.items()}
   register_device_build(_build)                      # phases 38-41
   t0 = time.perf_counter()
-  built = _build.build()
+  built = _build.build(list(_build.KERNELS))     # the wide builds too: no nvcc in a timed phase
   note(f"build: {time.perf_counter() - t0:.2f} s in parallel; "
        + ", ".join(f"{n} {sec:.2f} s" for n, sec in built.items()))
   for name, log in _build.build_logs.items():

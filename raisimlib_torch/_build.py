@@ -89,11 +89,12 @@ def _lib_path(name: str) -> str:
   return os.path.join(BUILD_DIR, f"{name}-{_digest(b'', spec['defines'])}.so")
 
 
-def add_generated(stem: str, text: str, symbols: dict) -> str:
-  """Register a generated kernel source (compiled against csrc/'s headers)
-  and return its name, `stem`-<hash>. The source is written into `_build/`;
-  nothing is compiled until `build` or `load`."""
-  name = f"{stem}-{_digest(text.encode(), ())}"
+def add_generated(stem: str, text: str, symbols: dict, flags=(), lazy: bool = False) -> str:
+  """Register a generated kernel source (compiled against csrc/'s headers,
+  with nvcc's `flags` after FLAGS) and return its name, `stem`-<hash>. The
+  source is written into `_build/`; nothing is compiled until `build` or
+  `load`, and a `lazy` one only by `load` or by name."""
+  name = f"{stem}-{_digest(text.encode(), flags)}"
   if name not in KERNELS:
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"{name}.cu")
@@ -102,15 +103,16 @@ def add_generated(stem: str, text: str, symbols: dict) -> str:
       with open(tmp, "w") as f:
         f.write(text)
       os.replace(tmp, path)
-    KERNELS[name] = dict(source=path, defines=(), symbols=symbols, generated=True)
+    KERNELS[name] = dict(source=path, defines=tuple(flags), symbols=symbols, generated=True,
+                         lazy=lazy)
   return name
 
 
 def build(names=None) -> dict:
-  """Compile the named kernels (default: all registered) that are not built
-  yet, one nvcc process each, in parallel. Returns {name: seconds} for those
-  built."""
-  names = list(KERNELS) if names is None else list(names)
+  """Compile the named kernels (default: all registered but the lazy ones)
+  that are not built yet, one nvcc process each, in parallel. Returns
+  {name: seconds} for those built."""
+  names = [n for n in KERNELS if not KERNELS[n].get("lazy")] if names is None else list(names)
   todo = [n for n in names if not os.path.exists(_lib_path(n))]
   if not todo:
     return {}

@@ -19,7 +19,11 @@
 // The arithmetic follows the TPU kernel: big = 3e38 marks infeasible angles,
 // the argmin is the first index that attains the minimum, and the 5-point
 // neighbours wrap (minimum at point 0 takes point 4 as its left neighbour).
-// Compile without --use_fast_math: sincosf and division must be IEEE.
+// Compile without --use_fast_math: sincosf and division must be IEEE. The
+// FMAs are written out (fmaf), each where a * b + c of the twin's order
+// stood, so that a build with --fmad=false, as the fused step's are,
+// rounds each value as written here, whatever code its includer puts
+// around the solve.
 
 #pragma once
 
@@ -41,17 +45,17 @@ struct ConeConsts {
 __device__ __forceinline__ void stick_solve(const float* g, float c0, float c1,
                                             float c2, float* out) {
   const float g00 = g[0], g01 = g[1], g02 = g[2], g11 = g[3], g12 = g[4], g22 = g[5];
-  const float k00 = g11 * g22 - g12 * g12;
-  const float k01 = g02 * g12 - g01 * g22;
-  const float k02 = g01 * g12 - g02 * g11;
-  const float k11 = g00 * g22 - g02 * g02;
-  const float k12 = g01 * g02 - g00 * g12;
-  const float k22 = g00 * g11 - g01 * g01;
-  const float det = g00 * k00 + g01 * k01 + g02 * k02;
+  const float k00 = fmaf(g11, g22, -g12 * g12);
+  const float k01 = fmaf(g02, g12, -g01 * g22);
+  const float k02 = fmaf(g01, g12, -g02 * g11);
+  const float k11 = fmaf(g00, g22, -g02 * g02);
+  const float k12 = fmaf(g01, g02, -g00 * g12);
+  const float k22 = fmaf(g00, g11, -g01 * g01);
+  const float det = fmaf(g02, k02, fmaf(g01, k01, g00 * k00));
   const float inv_det = 1.0f / (det + 1e-20f);
-  out[0] = -(k00 * c0 + k01 * c1 + k02 * c2) * inv_det;
-  out[1] = -(k01 * c0 + k11 * c1 + k12 * c2) * inv_det;
-  out[2] = -(k02 * c0 + k12 * c1 + k22 * c2) * inv_det;
+  out[0] = -fmaf(k02, c2, fmaf(k01, c1, k00 * c0)) * inv_det;
+  out[1] = -fmaf(k12, c2, fmaf(k11, c1, k01 * c0)) * inv_det;
+  out[2] = -fmaf(k22, c2, fmaf(k12, c1, k02 * c0)) * inv_det;
 }
 
 // E on the slip curve at the angle whose sine and cosine are sn, cs
@@ -62,16 +66,16 @@ __device__ __forceinline__ float cone_curve_sc(const float* g, float c0, float c
                                                float* d1_out) {
   const float d0 = mu * cs;
   const float d1 = mu * sn;
-  const float gd0 = g[0] * d0 + g[1] * d1 + g[2];
-  const float gd1 = g[1] * d0 + g[3] * d1 + g[4];
-  const float gd2 = g[2] * d0 + g[4] * d1 + g[5];
+  const float gd0 = fmaf(g[1], d1, g[0] * d0) + g[2];
+  const float gd1 = fmaf(g[3], d1, g[1] * d0) + g[4];
+  const float gd2 = fmaf(g[4], d1, g[2] * d0) + g[5];
   const bool den_ok = gd2 > 1e-12f;
   float s = -c2 / (den_ok ? gd2 : 1.0f);
   const bool feas = den_ok && (s > 0.0f);
   s = feas ? s : 0.0f;
-  const float dgd = d0 * gd0 + d1 * gd1 + gd2;
-  const float dc = d0 * c0 + d1 * c1 + c2;
-  const float E = 0.5f * s * s * dgd + s * dc;
+  const float dgd = fmaf(d1, gd1, d0 * gd0) + gd2;
+  const float dc = fmaf(d1, c1, d0 * c0) + c2;
+  const float E = fmaf(0.5f * s * s, dgd, s * dc);
   *s_out = s;
   *d0_out = d0;
   *d1_out = d1;
@@ -95,6 +99,67 @@ __device__ __forceinline__ float cone_curve_E(const float* g, float c0, float c1
 }
 
 #ifdef FS_LANES_BEGIN
+// The key of an energy in the first-match argmin: unsigned order is the
+// order of the floats, the two zeros are one key, and a NaN comes first (0;
+// any NaN marks the search). A key selects and computes nothing.
+__device__ __forceinline__ unsigned cone_key(float e) {
+  const unsigned b = __float_as_uint(e + 0.0f);       // -0 + 0 = +0
+  return e != e ? 0u : ((b & 0x80000000u) ? ~b : (b | 0x80000000u));
+}
+
+// A lane's own values and the exchanges between the lanes of one world, in
+// the card's forms (a host build of a body defines its own first, where one
+// thread runs a world's lanes in turn):
+//   FS_EACH_BEGIN ... FS_EACH_END  a lane loop: lane l = fs_lane runs the
+//                                  body for its own l; no sync, for the body
+//                                  writes no shared memory, only its own values;
+//   FS_OWN(T, x, n)                n values of type T that each lane holds
+//                                  its own of, FS_MINE(x, i) inside a lane loop;
+//   FS_FROM(x, i, src)             the i-th of lane src's x, in every lane
+//                                  (i a constant);
+//   FS_ARGMIN(key, k, kmin_key, kmin)  the least key[0] over the world's
+//                                  lanes, and the least k[0] of the lanes that
+//                                  hold it, in every lane.
+// A world's lanes are FS_LANES adjacent lanes of a warp, from a multiple of
+// FS_LANES. The includer names in FS_LANE_MASK the warp's lanes that take
+// part: every world of the warp passes the same exchanges in the same order.
+#ifndef FS_EACH_BEGIN
+#define FS_EACH_BEGIN { const int l = fs_lane;
+#define FS_EACH_END }
+#define FS_OWN(T, x, n) T x[n]
+#define FS_MINE(x, i) x[i]
+#define FS_FROM(x, i, src) __shfl_sync(FS_LANE_MASK, x[i], src, FS_LANES)
+#define FS_ARGMIN(key, k, kmin_key, kmin) rsl::lanes_argmin(key[0], k[0], &kmin_key, &kmin)
+
+// One world a warp: two warp reductions (redux.sync), the least key, then
+// the least index of the lanes that hold it. Several worlds a warp:
+// log2(FS_LANES) rounds of __shfl_xor_sync within each world's lanes, each
+// lane keeping the pair that comes first (redux.sync over each world's part
+// of the warp ran K1's 8-lane build 18% slower on an H100).
+__device__ __forceinline__ void lanes_argmin(unsigned key, int k, unsigned* kmin_key, int* kmin) {
+  if (FS_LANES == 32) {
+    const unsigned m = __reduce_min_sync(FS_LANE_MASK, key);
+    *kmin_key = m;
+    *kmin = (int)__reduce_min_sync(FS_LANE_MASK, key == m ? (unsigned)k : 0xffffffffu);
+    return;
+  }
+#pragma unroll
+  for (int m = 1; m < FS_LANES; m <<= 1) {
+    const unsigned ko_key = __shfl_xor_sync(FS_LANE_MASK, key, m, FS_LANES);
+    const int ko = __shfl_xor_sync(FS_LANE_MASK, k, m, FS_LANES);
+    if (ko_key < key || (ko_key == key && ko < k)) {
+      key = ko_key;
+      k = ko;
+    }
+  }
+  *kmin_key = key;
+  *kmin = k;
+}
+#endif  // FS_EACH_BEGIN
+
+// The points of a refinement a lane holds: j = l + i FS_LANES < 5.
+constexpr int kConeRefineItems = (5 + FS_LANES - 1) / FS_LANES;
+
 // The grid's sines and cosines, trig[2 k] and trig[2 k + 1] = sincosf(k
 // dtheta), written in a lane region: they are the same for every solve.
 __device__ __forceinline__ void cone_grid_trig(const ConeConsts& cc, float* trig,
@@ -106,67 +171,78 @@ __device__ __forceinline__ void cone_grid_trig(const ConeConsts& cc, float* trig
 }
 
 // The cone solve with the angular search split over the FS_LANES lanes of
-// one world (the includer's lane regions): lane l evaluates the grid points
-// k = l (mod FS_LANES) into the world's shared E (n_grid floats), from the
-// sines and cosines of cone_grid_trig, then, in each refinement, the points
-// j = l (mod FS_LANES) of the 5 into E[0..4]. Everything else, the
-// first-match argmins over E included, every lane runs alike and gets the
-// same values. Each value is the expression of the one-thread solve it
-// replaced and of the plain twin (ops/gpu_contact.py `_cone_solve_grid`):
-// sincosf of the same angle, and a refinement point's offset, 0.5 (j - 2)
-// times the span, is exact. So the impulse is the same for any FS_LANES.
+// one world (the includer's lane loops and exchanges): lane l evaluates the
+// grid points k = l (mod FS_LANES), from the sines and cosines of
+// cone_grid_trig, and keeps the first of its least key (cone_key);
+// FS_ARGMIN then gives every lane the grid's first-match argmin. In each
+// refinement the lanes j of the 5 points evaluate them and every lane takes
+// all 5 (FS_FROM), then scans them as the one-thread solve did. Everything
+// else every lane runs alike and gets the same values, in registers: the
+// solve writes no shared memory. Each value has one expression at any
+// FS_LANES, that of the plain twin (ops/gpu_contact.py `_cone_solve_grid`)
+// up to the FMAs: sincosf of the same angle, and a refinement point's
+// offset, 0.5 (j - 2) times the span, is exact; the argmins select, and ties
+// go to the lowest index. So the impulse is the same for any FS_LANES.
 __device__ __forceinline__ void cone_solve_lanes(const float* gs, float c0, float c1,
                                                  float c2, float mu, const ConeConsts& cc,
-                                                 const float* trig, float* E,
-                                                 const int fs_lane, float* out) {
-  float g[6];                         // gs may be shared: read it once, before the syncs
+                                                 const float* trig, const int fs_lane,
+                                                 float* out) {
+  float g[6];                         // gs may be shared: read it once
 #pragma unroll
   for (int k = 0; k < 6; ++k) g[k] = gs[k];
   float ls[3];
   stick_solve(g, c0, c1, c2, ls);
-  const float t_norm = sqrtf(ls[0] * ls[0] + ls[1] * ls[1] + 1e-20f);
+  const float t_norm = sqrtf(fmaf(ls[1], ls[1], ls[0] * ls[0]) + 1e-20f);
   const bool stick_ok = ((ls[2] > 0.0f) && (t_norm <= mu * ls[2])) || (mu > 1e6f);
   const bool open_ok = c2 >= 0.0f;
 
-  FS_LANES_BEGIN
+  FS_OWN(unsigned, keys, 1);
+  FS_OWN(int, ks, 1);
+  FS_EACH_BEGIN
+  unsigned best = 0xffffffffu;        // no point yet: after every key
+  int kbest = cc.n_grid;
 #pragma unroll
   for (int i = 0; i < (cc.n_grid + FS_LANES - 1) / FS_LANES; ++i) {
     const int k = l + i * FS_LANES;
     float s, d0, d1;
-    if (k < cc.n_grid)
-      E[k] = cone_curve_sc(g, c0, c1, c2, mu, trig[2 * k], trig[2 * k + 1], &s, &d0, &d1);
-  }
-  FS_LANES_END
-  bool grid_nan = false;
-  int kmin = 0;
-  float Emin = kConeBig;
-#pragma unroll
-  for (int k = 0; k < cc.n_grid; ++k) {
-    const float Ek = E[k];
-    if (Ek != Ek) {
-      grid_nan = true;
-    } else if (k == 0 || Ek < Emin) {
-      Emin = Ek;
-      kmin = k;
+    if (k < cc.n_grid) {
+      const unsigned key = cone_key(
+          cone_curve_sc(g, c0, c1, c2, mu, trig[2 * k], trig[2 * k + 1], &s, &d0, &d1));
+      if (key < best) {
+        best = key;
+        kbest = k;
+      }
     }
   }
-  const bool any_feas = !grid_nan && (Emin < kConeBig);
+  FS_MINE(keys, 0) = best;
+  FS_MINE(ks, 0) = kbest;
+  FS_EACH_END
+  unsigned kmin_key;
+  int kmin;
+  FS_ARGMIN(keys, ks, kmin_key, kmin);
+  const bool grid_nan = kmin_key == 0u;
+  const bool any_feas = !grid_nan && (kmin_key < cone_key(kConeBig));
   float theta_b = grid_nan ? 0.0f : (float)kmin * cc.dtheta;
 
   float E0 = 0.0f, Em = 0.0f, Ep = 0.0f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float span = r == 0 ? cc.span1 : cc.span2;
-    FS_LANES_BEGIN
-#pragma unroll 1
-    for (int j = l; j < 5; j += FS_LANES)
-      E[j] = cone_curve_E(g, c0, c1, c2, mu, theta_b + 0.5f * (float)(j - 2) * span);
-    FS_LANES_END
+    FS_OWN(float, e5, kConeRefineItems);
+    FS_EACH_BEGIN
+#pragma unroll
+    for (int i = 0; i < kConeRefineItems; ++i) {
+      const int j = l + i * FS_LANES;
+      FS_MINE(e5, i) = 0.0f;
+      if (j < 5)
+        FS_MINE(e5, i) = cone_curve_E(g, c0, c1, c2, mu, theta_b + 0.5f * (float)(j - 2) * span);
+    }
+    FS_EACH_END
     float E5[5];
     bool nan5 = false;
     int k5 = 0;
 #pragma unroll
-    for (int j = 0; j < 5; ++j) E5[j] = E[j];
+    for (int j = 0; j < 5; ++j) E5[j] = FS_FROM(e5, j / FS_LANES, j % FS_LANES);
 #pragma unroll
     for (int j = 0; j < 5; ++j) {
       if (E5[j] != E5[j]) nan5 = true;

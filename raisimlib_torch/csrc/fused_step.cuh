@@ -20,14 +20,17 @@
 // KB, and runs about 3.4e5 float operations, 87% of them in the sweeps. On the
 // TPU a lane ran one world; a thread per world leaves that whole chain on one
 // thread, with the W rows in local memory, and a small batch on a few SMs. So
-// here FS_LANES lanes (8) of a warp share one world. They run the serial parts
-// alike, each in its own registers, and split the parts that are parallel
-// within a world in lane regions: phase F's right-hand columns, the 32 points
-// of each cone solve's angular grid (and the 5 of each refinement), and the
-// nv entries of z in each W update. The world's slice of shared memory,
-// FS_SMEM_WORLD floats, holds the W rows with the v_free column, z and the
-// cone solve's energies, which the lanes share, and also J, the cones' Gii
-// blocks and the grid's sines and cosines, which would otherwise sit in
+// here FS_LANES lanes of a warp share one world: 8 where the batch fills the
+// card, 32 (one world a block) where its worlds, a warp each, fit it in one
+// wave (gpu_step.lanes_for). They run the serial parts alike, each in its
+// own registers, and split the parts that are parallel within a world:
+// phase F's right-hand columns, the 32 points of each cone solve's angular
+// grid (and the 5 of each refinement), which they exchange by warp
+// reductions and shuffles (cone_solve.cuh), and the nv entries of z in each
+// W update.
+// The world's slice of shared memory, FS_SMEM_WORLD floats, holds the W rows
+// with the v_free column and z, which the lanes share, and also J, the cones'
+// Gii blocks and the grid's sines and cosines, which would otherwise sit in
 // registers through the sweeps (gpu_step._smem_layout).
 //
 // Lane regions: FS_LANES_BEGIN ... FS_LANES_END. Each starts and ends with
@@ -48,13 +51,13 @@
 // probes load (__ldg) the 4 heights of each cell they land in.
 //
 // Block size: 32 threads, one warp, FS_BLOCK / FS_LANES worlds. Small blocks
-// spread a small batch over many SMs: the trot MPPI's B = 384 makes 96 blocks.
-// At a large batch an SM runs as many warps as registers and shared memory
-// let it; FS_MIN_BLOCKS (gpu_step.min_blocks) caps the registers where
-// shared memory would hold 16 blocks. The block's shared arrays are static up
-// to 48 KB and dynamic above that (cudaFuncSetAttribute); gpu_step.smem_bytes
-// refuses a scene whose block would need more than the 227 KB an SM gives
-// one block.
+// spread a small batch over many SMs: the trot MPPI's B = 384 makes 384
+// blocks of one world. At a large batch an SM runs as many warps as registers
+// and shared memory let it; FS_MIN_BLOCKS (gpu_step.min_blocks) caps the
+// registers where shared memory would hold 16 blocks of an 8-lane build.
+// The block's shared arrays are static up to 48 KB and dynamic above that
+// (cudaFuncSetAttribute); gpu_step.smem_bytes refuses a scene whose block
+// would need more than the 227 KB an SM gives one block.
 
 #pragma once
 
@@ -94,6 +97,20 @@ fused_step_kernel(const float* __restrict__ q, const float* __restrict__ u,
 }
 
 }  // namespace
+
+// The build's resident blocks per SM on the current device (the occupancy
+// API, at the launch's block and shared memory), in *blocks; returns the
+// cudaError (0 = success). gpu_step reads it to choose a batch's width.
+extern "C" int fused_step_blocks_per_sm(int* blocks) {
+  const size_t dyn = FS_SMEM_DYNAMIC ? sizeof(float) * FS_SMEM_BLOCK : 0;
+  if (dyn) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_step_kernel, FS_BLOCK,
+                                                            dyn);
+}
 
 // Plain C entry point for ctypes. Launches ceil(B / FS_WPB) blocks on
 // `stream` and returns cudaGetLastError() (0 = launched), so that a refused

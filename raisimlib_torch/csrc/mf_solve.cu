@@ -29,8 +29,8 @@
 //     each cone solve, the hoisted dots and the W updates (mf_solve.cuh);
 //   - the warp stages each world's used J and W rows into shared memory once
 //     (neighbouring lanes on neighbouring floats, 8 items in flight a lane),
-//     and keeps z, lambda, Gii, c0, the energies and the grid's
-//     sines and cosines there too (J left in device memory, with more
+//     and keeps z, lambda, Gii, c0 and the grid's sines and cosines
+//     there too (J left in device memory, with more
 //     worlds an SM, was 4% faster at B = 16384 and 27% slower at 2048);
 //   - the inputs and outputs are the batch-first tensors of
 //     pipeline.solver_inputs, read and written without a layout copy.
@@ -43,11 +43,12 @@
 // device-memory layout instead (mf_solve_kernel<false>): the J and W rows
 // stay in the inputs and the lanes read them there (__ldg) every sweep, with
 // the same expressions as the staged layout (the same bits); the small
-// arrays (vf, z, lambda, Gii, c0, mu, act, E, trig) stay in shared memory. It
+// arrays (vf, z, lambda, Gii, c0, mu, act, trig) stay in shared memory. It
 // refuses only a shape of which one world's small arrays do not fit.
 //
 // Lane regions: FS_LANES_BEGIN ... FS_LANES_END sync the block's threads
-// (one warp, or its first wpb x MF_LANES lanes) on both sides. Every world of
+// (one warp, or its first wpb x MF_LANES lanes) on both sides; the cone
+// solve's exchanges between lanes take the same threads (FS_LANE_MASK). Every world of
 // a block passes the same regions in the same order (the kinds are the same
 // for every world), so a world past B computes on world B - 1 and stores
 // nothing.
@@ -76,6 +77,7 @@ __device__ __forceinline__ unsigned mf_block_mask() {
 #define FS_LANES MF_LANES
 #define FS_LANES_BEGIN __syncwarp(mf_block_mask()); { const int l = fs_lane;
 #define FS_LANES_END } __syncwarp(mf_block_mask());
+#define FS_LANE_MASK mf_block_mask()
 
 #include "mf_solve.cuh"
 

@@ -2,16 +2,18 @@
 // FS_LANES lanes of the world. csrc/mf_solve.cu gives it its CUDA frame; the
 // tests build it as host C++, where the lane regions run lane after lane.
 //
-// The includer defines FS_LANES and FS_LANES_BEGIN / FS_LANES_END (a lane
+// The includer defines FS_LANES, FS_LANES_BEGIN / FS_LANES_END (a lane
 // region: lane l = fs_lane of the world runs the body for its own l, with a
-// sync on both sides).
+// sync on both sides) and FS_LANE_MASK (the threads of the block, which the
+// cone solve's exchanges between lanes take).
 //
 // The lanes run the serial parts alike, each in its own registers: the J.z
-// dots, c, the stick solve and the cone solve's argmins. They split the
-// independent parts in lane regions: the staging of the world's rows, the
-// hoisted Gii and c0 dots (one dot per item, each in the one-thread order),
-// the cone solve's angular grid and refinements (rsl::cone_solve_lanes), the
-// W updates of z (by dof) and the stores (each output entry by one lane).
+// dots, c and the stick solve. They split the independent parts in lane
+// regions: the staging of the world's rows, the hoisted Gii and c0 dots (one
+// dot per item, each in the one-thread order), the cone solve's angular grid
+// and refinements, whose argmins the lanes reduce between them
+// (rsl::cone_solve_lanes), the W updates of z (by dof) and the stores (each
+// output entry by one lane).
 // Every value keeps the expression and summation order of the one-thread
 // kernel this body replaced, so the impulses do not depend on FS_LANES.
 // Serial code writes no shared memory; shared pointers are never
@@ -35,10 +37,10 @@ constexpr int kMfBilateral = 2;
 // ws (W rows), nrow x nv each, only the rows the kinds use (3 of a cone or
 // bilateral row, the third of a lin row), present in the staged layout only;
 // vf (nv); z (nv); lam (3 nc); gii (6 nc: 00, 01, 02, 11, 12, 22); c0 (3 nc);
-// mu and act (nc each); E, the cone solve's energies (max(n_grid, 5)); trig,
-// the grid's sines and cosines (2 n_grid).
+// mu and act (nc each); trig, the cone solve's grid's sines and cosines (2
+// n_grid).
 struct MfLayout {
-  int js, ws, vf, z, lam, gii, c0, mu, act, E, trig, total;
+  int js, ws, vf, z, lam, gii, c0, mu, act, trig, total;
 };
 
 __host__ __device__ inline MfLayout mf_layout(int nc, int nv, int nrow, int n_grid,
@@ -64,8 +66,6 @@ __host__ __device__ inline MfLayout mf_layout(int nc, int nv, int nrow, int n_gr
   off += nc;
   o.act = off;
   off += nc;
-  o.E = off;
-  off += n_grid > 5 ? n_grid : 5;
   o.trig = off;
   off += 2 * n_grid;
   o.total = off;
@@ -291,8 +291,7 @@ __device__ __forceinline__ void mf_world(
       if (kind == kMfBilateral) {
         rsl::stick_solve(gr, c0, c1, c2, ln);
       } else {
-        rsl::cone_solve_lanes(gr, c0, c1, c2, mus[i], cc, smem + L.trig, smem + L.E,
-                              fs_lane, ln);
+        rsl::cone_solve_lanes(gr, c0, c1, c2, mus[i], cc, smem + L.trig, fs_lane, ln);
       }
       const float la0 = ln[0] * ai, la1 = ln[1] * ai, la2 = ln[2] * ai;
       const float d0 = la0 - li0, d1 = la1 - li1, d2 = la2 - li2;

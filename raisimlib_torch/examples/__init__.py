@@ -38,7 +38,9 @@ def sync(dev: torch.device) -> None:
 
 def build_kernels(dev: torch.device) -> None:
   """Build every kernel registered so far (one nvcc each, in parallel) on
-  the card, so that no build falls inside a timed loop."""
+  the card, so that no build falls inside a timed loop; a fused step's wide
+  build (gpu_step.FusedKernel) waits for the run's warm-up, where a batch
+  that takes it first launches."""
   if dev.type == "cuda":
     from raisimlib_torch import _build
 

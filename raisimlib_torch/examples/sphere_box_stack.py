@@ -53,6 +53,9 @@ def run(smoke: bool = False, device=None,
   if dev.type == "cuda":
     step.kernel                                # registers the generated source
   build_kernels(dev)
+  with torch.inference_mode():
+    step(s, tau)                               # warm-up: builds the width a launch of B takes
+  sync(dev)
   compile_s = time.perf_counter() - t0
   with torch.inference_mode():
     sync(dev)
@@ -77,7 +80,7 @@ def run(smoke: bool = False, device=None,
       "sphere_drift_xy": float(torch.linalg.norm(q[7:9])),
       "settled_speed": float(u.abs().max()),
       "compile_s": compile_s,
-      "physics_steps": n,
+      "physics_steps": n + 1,                  # the warm-up step too
       "step_path": "K1",
       "device": str(dev),
   }

@@ -34,8 +34,9 @@ interface (`_Val`) with two back ends:
     tensors use. It follows the dtype of its inputs.
   * `_CudaOps`: each operation prints one CUDA statement into a named
     temporary. This gives the body of the kernel, which csrc/fused_step.cuh
-    frames (LANES = 8 lanes of a warp per world) and `_build` compiles for
-    sm_90a. The lanes run the serial chain alike and split its parallel
+    frames (LANES = 8 lanes of a warp per world, or WIDE = 32 where the
+    batch leaves the card mostly empty: `lanes_for`) and `_build` compiles
+    for sm_90a. The lanes run the serial chain alike and split its parallel
     parts in lane regions: phase F's right-hand columns, the cone solve's
     angular grid, and the entries of z in the W updates, over the world's
     shared memory (`_smem_layout`). Only the lane that computes a value
@@ -63,8 +64,10 @@ VJP does.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+import re
 from typing import NamedTuple
 
 import numpy as np
@@ -83,14 +86,23 @@ class FusedStepUnsupported(Exception):
   """Scene outside the fused kernel's supported class; use the K2 path."""
 
 
-# The kernel's shape: LANES lanes of a warp per world (FS_LANES), one warp
-# per block; a block may hold at most SMEM_BLOCK_LIMIT bytes of shared
-# memory (227 KB on an H100, dynamic above 48 KB). An SM holds SM_SMEM bytes
-# of its blocks' shared memory, each block 1 KB more than it asks for.
+# The kernel's shape: LANES lanes of a warp per world (FS_LANES), or WIDE
+# (one world a block) where the batch fits the card in one wave
+# (`lanes_for`), one warp per block; a block may hold at most
+# SMEM_BLOCK_LIMIT bytes of shared memory (227 KB on an H100, dynamic above
+# 48 KB). An SM holds SM_SMEM bytes of its blocks' shared memory, each block
+# 1 KB more than it asks for, and at most SM_BLOCKS blocks; its warps issue
+# from SM_SCHEDULERS schedulers. The kernel compiles with --fmad=false
+# (_FLAGS): its FMAs are written in its source (`_fuse_products`), so that
+# its two builds round alike.
 LANES = 8
+WIDE = 32
 BLOCK = 32
 SMEM_BLOCK_LIMIT = 232448
 SM_SMEM = 233472
+SM_BLOCKS = 32
+SM_SCHEDULERS = 4
+_FLAGS = ("--fmad=false",)
 
 
 # ---------------------------------------------------------------------------
@@ -1016,14 +1028,13 @@ class _CudaOps:
     return name
 
   def cone_solve(self, g, c, mu: float, n_grid: int):
-    """csrc/cone_solve.cuh's lane-split solve, its energies in the world's
-    shared E."""
+    """csrc/cone_solve.cuh's lane-split solve, its argmins reduced over the
+    world's lanes."""
     name = f"ln{self.n}"
     self.n += 1
     self.emit(f"float {name}[3];")
     self.emit(f"rsl::cone_solve_lanes({g}, {', '.join(self.e(x) for x in c)}, {_lit(mu)}, "
-              f"cc, fs_smem + {self.smem['trig']}, fs_smem + {self.smem['E']}, fs_lane, "
-              f"{name});")
+              f"cc, fs_smem + {self.smem['trig']}, fs_lane, {name});")
     self.ops += self.mult * gpu_contact.cone_solve_ops(n_grid)
     return [_Val(self, f"{name}[{a}]") for a in range(3)]
 
@@ -1074,17 +1085,18 @@ class _CudaOps:
   def axpy(self, z, W, rows, ds):
     """z += sum_a W[rows[a]] * ds[a] in a lane region: lane l updates the
     entries k = l (mod FS_LANES) of the shared z, each in the twin's order,
-    (W0 d0 + W1 d1) + W2 d2, then z + that."""
+    (W0 d0 + W1 d1) + W2 d2 with the later products fused (fmaf, as
+    `_fuse_products` does), then z + that."""
     nv = W.nv
-    terms = [f"jt[{r * nv} + k] * {self.e(d)}" for r, d in zip(rows, ds)]
+    terms = [(f"jt[{r * nv} + k]", self.e(d)) for r, d in zip(rows, ds)]
     self._lanes_begin()
     self.emit("#pragma unroll")                 # a constant trip count: the loads overlap
     self.emit(f"for (int i = 0; i < ({nv} + FS_LANES - 1) / FS_LANES; ++i) {{")
     self.emit("  const int k = l + i * FS_LANES;")
     self.emit(f"  if (k >= {nv}) break;")
-    self.emit(f"  float acc = {terms[0]};")
-    for t in terms[1:]:
-      self.emit(f"  acc = acc + {t};")
+    self.emit(f"  float acc = {terms[0][0]} * {terms[0][1]};")
+    for w, d in terms[1:]:
+      self.emit(f"  acc = fmaf({w}, {d}, acc);")
     self.emit(f"  {z.name}[k] = {z.name}[k] + acc;")
     self.emit("}")
     self.ops += self.mult * nv * 2 * len(rows)
@@ -1764,10 +1776,13 @@ _SOURCE_HEAD = """\
 // A lane region: lane l = fs_lane of the world runs the body for its own l.
 // The syncs, over the whole warp (a block is one warp, and all its worlds
 // pass the same regions in the same order), order the region's shared-memory
-// writes after every lane's earlier reads and before its later ones.
+// writes after every lane's earlier reads and before its later ones. The
+// cone solve's exchanges between lanes (cone_solve.cuh) take the whole warp
+// too.
 #ifndef FS_LANES_BEGIN
 #define FS_LANES_BEGIN __syncwarp(); {{ const int l = fs_lane;
 #define FS_LANES_END }} __syncwarp();
+#define FS_LANE_MASK 0xffffffffu
 #endif
 
 #include "cone_solve.cuh"
@@ -1807,15 +1822,14 @@ def _smem_layout(sd: _StaticData) -> dict:
   and the v_free column ((nw + 1) x nv, nw = 3 ncone + nlim); jr, the
   distinct runtime values of J (at most its nonzeros: each contact row moves
   the dofs of its bodies' ancestors, each limit row one dof; `jr_size`);
-  gii, the cones' hoisted 3x3 blocks (6 ncone); z (nv); E, the cone solve's
-  energies (n_grid, and the 5 of a refinement); trig, the sines and cosines
-  of its grid (2 n_grid); and their total."""
+  gii, the cones' hoisted 3x3 blocks (6 ncone); z (nv); trig, the sines
+  and cosines of the cone solve's grid (2 n_grid); and their total."""
   nv, nw = sd.nv, 3 * len(sd.slots) + len(sd.limits)
   jr = len(sd.limits) + sum(
       3 * len(set(sd.anc_dofs[s.body_a] if s.body_a >= 0 else ())
               | set(sd.anc_dofs[s.body_b] if s.body_b >= 0 else ())) for s in sd.slots)
   sizes = (("jt", (nw + 1) * nv), ("jr", jr), ("gii", 6 * len(sd.slots)), ("z", nv),
-           ("E", max(sd.n_grid, 5)), ("trig", 2 * sd.n_grid))
+           ("trig", 2 * sd.n_grid))
   out, off = {"jr_size": jr}, 0
   for name, n in sizes:
     out[name], off = off, off + n
@@ -1843,16 +1857,37 @@ def min_blocks(sd: _StaticData, lanes: int = LANES) -> int:
   lanes wait on one world's serial chain, so a large batch goes as fast as
   the warps an SM holds: where 16 blocks fit (the sphere-box stack), the cap
   doubles them for a few hundred bytes of spills; where shared memory stops
-  at 10 blocks (ANYmal), it would gain 2 warps for several KB of spills."""
+  at 10 blocks (ANYmal), it would gain 2 warps for several KB of spills. The
+  wide build (one world a block) runs only where the batch fits the card in
+  one wave (`lanes_for`), where latency counts and occupancy does not: it
+  keeps up to 255 registers (capped at 128 it ran 2-21% slower at B <= 1024
+  on an H100: ANYmal on flat ground and on terrain, the sphere-box stack)."""
+  if lanes == WIDE:
+    return 1
   return 16 if 16 * (smem_bytes(sd, lanes) + 1024) <= SM_SMEM else 1
 
 
-def kernel_source(sd: _StaticData):
-  """The CUDA source of the fused step for `sd`, its operation tally per
-  world and its height loads per world. Deterministic: the same static data
-  gives the same text. Raises FusedStepUnsupported where a block cannot
-  hold its worlds' shared arrays (`smem_bytes`)."""
-  smem_bytes(sd)
+def lanes_for(B: int, sms: int, blocks_per_sm: int, probes: bool = False) -> int:
+  """Lanes per world for a launch of B worlds on a card of `sms` SMs, where
+  the wide build (WIDE lanes, one world a block) holds `blocks_per_sm`
+  blocks an SM: WIDE where the B worlds, a warp each, fit the card in one
+  wave, else LANES. In one wave every world starts at once and the time is
+  one world's chain, which more lanes cut; past it a world waits for a
+  slot, and the narrow build's 4 worlds a warp do more work an SM. Where a
+  world `probes` a heightmap (its source loads heights), the wave holds at
+  most one warp per scheduler (SM_SCHEDULERS an SM): each world's chain of
+  dependent height loads then runs on a whole warp, and past that the
+  narrow build was the faster on an H100 (ANYmal on terrain: 8 lanes
+  faster by 1.5% and 6% at B = 768 and 1024, 32 lanes by 21% at 384; flat
+  ANYmal: 32 lanes faster up to 1024)."""
+  per_sm = min(blocks_per_sm, SM_SCHEDULERS) if probes else blocks_per_sm
+  return WIDE if B <= sms * per_sm else LANES
+
+
+def _source_body(sd: _StaticData):
+  """The body of the fused step's source for `sd` (everything but the head's
+  lane count and register cap), its operation tally per world and its height
+  loads per world."""
   layout = _smem_layout(sd)
   K = _CudaOps(sd.hm.ny if sd.hm is not None else 0, layout)
   dth = 2.0 * math.pi / sd.n_grid
@@ -1882,10 +1917,65 @@ def kernel_source(sd: _StaticData):
              f"slots ({', '.join(kinds) or 'none'}), {len(sd.limits)} limit rows, "
              f"{sd.sweeps} sweeps: {K.ops} operations and {K.loads} height loads "
              f"per world, {4 * layout['total']} bytes of shared memory.")
-  head = _SOURCE_HEAD.format(summary=summary, nq=sd.nq, nv=sd.nv,
-                             use_pd=int(sd.use_pd), has_hm=int(sd.hm is not None),
-                             smem_world=layout["total"], lanes=LANES, min_blocks=min_blocks(sd))
-  return head + "\n".join(K.lines) + "\n" + _SOURCE_TAIL, K.ops, K.loads
+  head = dict(summary=summary, nq=sd.nq, nv=sd.nv, use_pd=int(sd.use_pd),
+              has_hm=int(sd.hm is not None), smem_world=layout["total"])
+  return head, "\n".join(_fuse_products(K.lines)) + "\n" + _SOURCE_TAIL, K.ops, K.loads
+
+
+_DEF = re.compile(r"(?:const )?(?:float|bool|int) \w+ = [^;]*;")
+_SUM = re.compile(r"float (t\d+) = (\S+) ([*+-]) (\S+);")
+
+
+def _fuse_products(lines):
+  """The body's lines with each product that one sum or difference reads,
+  and nothing else, fused into it: `float tp = a * b;` ... `float ts = tp + c;`
+  becomes `float ts = fmaf(a, b, c);` (a - b: fmaf(-(a), b, c) or fmaf(a, b,
+  -(c))), where only definitions of other values lie between the two
+  lines, so that a and b still hold their values there. Of two products,
+  the second is fused. The kernel compiles with --fmad=false (`_FLAGS`),
+  so these are the FMAs of the generated code:
+  each value rounds as its line says, whatever code the lane count puts
+  around it, and every build of a scene gives the same bits."""
+  uses = collections.Counter(re.findall(r"\bt\d+\b", "\n".join(lines)))
+  prod, out = {}, list(lines)              # fusable product -> (its line, a, b)
+  for i, ln in enumerate(lines):
+    text = ln.strip()
+    m = _SUM.fullmatch(text)
+    if m is None:
+      if _DEF.fullmatch(text) is None:
+        prod.clear()                         # a store, a call, a brace: no fusing across it
+      continue
+    t, x, op, y = m.groups()
+    if op == "*":
+      if uses[t] == 2:                       # its definition and one read
+        prod[t] = (i, x, y)
+      continue
+    pad = ln[:len(ln) - len(ln.lstrip())]
+    if y in prod:
+      j, a, b = prod.pop(y)
+      out[i] = f"{pad}float {t} = fmaf({'-(' + a + ')' if op == '-' else a}, {b}, {x});"
+    elif x in prod:
+      j, a, b = prod.pop(x)
+      out[i] = f"{pad}float {t} = fmaf({a}, {b}, {'-(' + y + ')' if op == '-' else y});"
+    else:
+      continue
+    out[j] = None
+  return [ln for ln in out if ln is not None]
+
+
+def _with_head(sd: _StaticData, head: dict, body: str, lanes: int) -> str:
+  return _SOURCE_HEAD.format(lanes=lanes, min_blocks=min_blocks(sd, lanes), **head) + body
+
+
+def kernel_source(sd: _StaticData, lanes: int = LANES):
+  """The CUDA source of the fused step for `sd` at `lanes` lanes per world,
+  its operation tally per world and its height loads per world.
+  Deterministic: the same static data gives the same text. Raises
+  FusedStepUnsupported where a block cannot hold its worlds' shared arrays
+  (`smem_bytes`)."""
+  smem_bytes(sd, lanes)
+  head, body, ops, loads = _source_body(sd)
+  return _with_head(sd, head, body, lanes), ops, loads
 
 
 # ---------------------------------------------------------------------------
@@ -1893,24 +1983,65 @@ def kernel_source(sd: _StaticData):
 # ---------------------------------------------------------------------------
 
 _SYMBOLS = {"fused_step_launch": [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]}
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
+            "fused_step_blocks_per_sm": [ctypes.c_void_p]}
 
 
 class FusedKernel:
-  """The generated kernel of one scene: its source is registered with
-  `_build` at construction and compiled with nvcc at the first launch (or
-  by `_build.build()`, with the other kernels, in parallel)."""
+  """The generated kernel of one scene, at LANES and at WIDE lanes per
+  world: both sources are registered with `_build` at construction; each is
+  compiled with nvcc at the first launch that takes it. `_build.build()`
+  compiles the LANES build with the other kernels, in parallel, and leaves
+  the wide one to its first launch. `name` and `source` are the LANES
+  build's, `names[lanes]` each build's."""
 
   def __init__(self, sd: _StaticData):
     self.sd = sd
-    self.source, self.ops_per_world, self.loads_per_world = kernel_source(sd)
-    self.smem_bytes = smem_bytes(sd)             # per 32-thread block
-    self.name = _build.add_generated("fused_step", self.source, _SYMBOLS)
+    self.smem_bytes = smem_bytes(sd)             # per 32-thread block of the LANES build
+    head, body, self.ops_per_world, self.loads_per_world = _source_body(sd)
+    self.sources = {n: _with_head(sd, head, body, n) for n in (LANES, WIDE)}
+    self.names = {n: _build.add_generated("fused_step", src, _SYMBOLS, _FLAGS, lazy=n == WIDE)
+                  for n, src in self.sources.items()}
+    self.source, self.name = self.sources[LANES], self.names[LANES]
+    self._waves = {}                             # device -> [SMs, bound, blocks per SM]
+
+  def lanes(self, B: int, device) -> int:
+    """Lanes per world for a launch of B worlds on `device`: `lanes_for` with
+    the card's SMs, the wide build's resident blocks per SM (the occupancy
+    API, read once a device) and whether the source loads heights. A batch past what the wide build
+    could hold in one wave before its registers count (SM_BLOCKS blocks an
+    SM, and no more than the SM's warps and shared memory take) takes LANES
+    without building the wide source."""
+    wave = self._waves.get(device)
+    if wave is None:
+      props = torch.cuda.get_device_properties(device)
+      bound = min(SM_BLOCKS, props.max_threads_per_multi_processor // BLOCK,
+                  SM_SMEM // (smem_bytes(self.sd, WIDE) + 1024))
+      wave = self._waves[device] = [props.multi_processor_count, bound, None]
+    sms, bound, blocks = wave
+    probes = self.loads_per_world > 0
+    if lanes_for(B, sms, bound, probes) == LANES:
+      return LANES
+    if blocks is None:
+      n = ctypes.c_int(0)
+      with torch.cuda.device(device):
+        rc = _build.load(self.names[WIDE]).fused_step_blocks_per_sm(ctypes.byref(n))
+      if rc != 0:
+        raise RuntimeError(f"fused_step occupancy query failed: cudaError {rc}")
+      blocks = wave[2] = n.value
+    return lanes_for(B, sms, blocks, probes)
 
   def launch(self, q, u, tau, pd, heights=None):
     """(q', u') for float32 CUDA tensors q (B, nq), u, tau, pd (B, nv) and,
     on a heightmap scene, heights (B, nx, ny). A heights tensor whose world
-    stride is 0 (`field.heights.expand(B, nx, ny)`) is read without a copy."""
+    stride is 0 (`field.heights.expand(B, nx, ny)`) is read without a copy.
+    The build follows the batch (`lanes`)."""
+    return self.launch_build(None, q, u, tau, pd, heights)
+
+  def launch_build(self, lanes, q, u, tau, pd, heights=None):
+    """`launch` through the build at `lanes` lanes per world (LANES or
+    WIDE), whichever the batch would take; None: the batch's (`lanes`). The
+    card's checks launch both builds on the same inputs with it."""
     sd = self.sd
     B = q.shape[0]
     ins = {"q": (q, (B, sd.nq)), "u": (u, (B, sd.nv)), "tau": (tau, (B, sd.nv))}
@@ -1939,15 +2070,17 @@ class FusedKernel:
       hts, stride = heights.data_ptr(), heights.stride(0)
     qo = torch.empty_like(q)
     uo = torch.empty_like(u)
-    lib = _build.load(self.name)
+    lanes = self.lanes(B, q.device) if lanes is None else lanes
+    lib = _build.load(self.names[lanes])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with profiling.span("k1.enqueue", B=B):
+    with profiling.span("k1.enqueue", B=B, lanes=lanes):
       rc = lib.fused_step_launch(q.data_ptr(), u.data_ptr(), tau.data_ptr(),
                                  pd.data_ptr() if pd is not None else None,
                                  hts, stride, qo.data_ptr(), uo.data_ptr(), B, stream)
     if rc != 0:
       raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
     make_step_batch_fused.launches += 1
+    make_step_batch_fused.launches_wide += int(lanes == WIDE)
     return qo, uo
 
 
@@ -2027,8 +2160,9 @@ def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
   (pd_target ignored when use_pd=False). On a heightmap scene
   `field_heights` (B, nx, ny) gives each world its own terrain; None uses
   the scene's field for every world. CUDA tensors (float32) launch the
-  generated kernel and count one launch in `make_step_batch_fused.launches`;
-  CPU tensors run the twin `_fused_plain`. Gradients differentiate
+  generated kernel and count one launch in `make_step_batch_fused.launches`
+  (and in `.launches_wide` where it took the wide build); CPU tensors run
+  the twin `_fused_plain`. Gradients differentiate
   pipeline.step_batch with the same heights (its contact solve's backward
   runs `_mf_pure`), the forward/backward split of the JAX package's custom
   VJP. Raises FusedStepUnsupported for scenes outside the kernel's classes."""
@@ -2037,6 +2171,7 @@ def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
 
 
 make_step_batch_fused.launches = 0
+make_step_batch_fused.launches_wide = 0
 
 
 def fused_step_cost(sd: _StaticData, B: int, ops_per_world: int,

@@ -3,7 +3,7 @@
   * models/atlas.py's URDF and standing pose are the JAX module's;
   * gpu_step._analyze gives JAX's 32 plane_pt slots (the 8 corners of the
     pelvis, torso and two feet boxes) and 23 limit rows, field for field and
-    in order; a block of 4 worlds holds 76,096 bytes of shared memory;
+    in order; a block of 4 worlds holds 75,584 bytes of shared memory;
   * tests/goldens/atlas_settle.npz through Scene.step in float32, under the
     Atlas gate of utils/parity.py;
   * pipeline.step_batch in f64 at B = 2 against JAX's
@@ -100,12 +100,12 @@ def test_analyze_matches_jax(jax_scene):
 
 
 def test_block_shared_memory_and_register_cap():
-  """A block of 4 worlds holds 76,096 bytes of shared memory (19,024 a
+  """A block of 4 worlds holds 75,584 bytes of shared memory (18,896 a
   world), so 3 blocks fit an SM and the register cap stays off."""
   from raisimlib_torch.ops import gpu_step
 
   sd = gpu_step.make_step_batch_fused(_port_scene(torch.float32)).sd
-  assert gpu_step.smem_bytes(sd) == 76096
+  assert gpu_step.smem_bytes(sd) == 75584
   assert gpu_step.min_blocks(sd) == 1
 
 

@@ -4,7 +4,8 @@ shapes of 7 and 8 free boxes on the ground and where not even one world's
 small arrays fit a block, and the fused step K1 on the
 plane, on a heightmap, with the sphere pairs and with loose cylinders, cones
 and meshes on a heightmap, Atlas at nv = 29, the iLQR scene at the FD
-batch of 39,200 worlds, and at batches whose last warp is partly empty)
+batch of 39,200 worlds, at batches whose last warp is partly empty, and its
+wide build, 32 lanes a world, bitwise against the 8-lane one)
 against their plain PyTorch twins on the GPU. They skip without a CUDA device. JAX
 is not needed,
 so on the GPU machine they run without the JAX test configuration:
@@ -464,3 +465,50 @@ def test_mf_solve_layout_at_box_pile_shapes(n_boxes, layout):
   assert torch.equal(uk, again[0]) and torch.equal(lk, again[1])
   for b, (ut, lt) in zip((1, 3), tails):
     assert torch.equal(ut, uk[:b]) and torch.equal(lt, lk[:b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terrain", [False, True], ids=["flat", "terrain"])
+def test_fused_step_wide_and_narrow_builds_agree_bitwise(terrain):
+  """K1 at the batches that the width rule sends to the wide build (32 lanes,
+  one world a block) on an H100: flat ANYmal (K1a) and ANYmal on the 64
+  fractal terrains (K1c), 20 steps into contact, at B = 1, 4, 128, 383 and
+  384. Each launch through make_step_batch_fused takes the wide build and
+  counts in `launches_wide`; the narrow build (8 lanes) launched on the same
+  inputs gives the same bits; and the wide batch of 384 launched twice
+  gives the same bits (a race between a world's lanes would show)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from raisimlib_torch.ops import gpu_step as gs
+  from raisimlib_torch.ops.integrator import State
+
+  cs = load_chip_smoke()
+  step = gs.make_step_batch_fused(cs.anymal_scene(torch, kp=120.0, kd=3.0, terrain=terrain)
+                                  if terrain else cs.anymal_scene(torch))
+  B = 384
+  with torch.inference_mode():
+    if terrain:
+      hts = cs.make_terrains(torch, 64).repeat(B // 64, 1, 1).contiguous()
+      s, pd, _ = cs.terrain_states(torch, step.scene, hts, seed=21)
+    else:
+      hts = None
+      s, pd, _ = cs.standing_states(torch, step.scene, B, seed=21)
+    tau = torch.zeros_like(pd)
+    for _ in range(20):
+      s = step(s, tau, pd, field_heights=hts)
+    again = [step(s, tau, pd, field_heights=hts) for _ in range(2)]
+  for b in (1, 4, 128, 383, 384):
+    cut = lambda x: None if x is None else x[:b]    # noqa: E731
+    sb = State(q=s.q[:b], u=s.u[:b], t=s.t[:b])
+    n0, w0 = gs.make_step_batch_fused.launches, gs.make_step_batch_fused.launches_wide
+    with torch.inference_mode():
+      sk = step(sb, tau[:b], pd[:b], field_heights=cut(hts))
+      assert gs.make_step_batch_fused.launches == n0 + 1
+      assert gs.make_step_batch_fused.launches_wide == w0 + 1
+      qo, uo = step.kernel.launch_build(gs.LANES, sb.q, sb.u, tau[:b], pd[:b],
+                                        step.heights(sb.q, cut(hts)))
+    torch.cuda.synchronize()
+    assert step.kernel.lanes(b, sb.q.device) == gs.WIDE
+    assert torch.equal(sk.q, qo) and torch.equal(sk.u, uo), b
+  assert torch.equal(again[0].q, again[1].q) and torch.equal(again[0].u, again[1].u)
+  assert step.kernel.lanes(16384, s.q.device) == gs.LANES

@@ -2,18 +2,28 @@
 CPU: the generated body compiled as host C++ (torch_port_util.host_step),
 where one thread runs each world's lane regions lane after lane.
 
-  * Bodies built at FS_LANES = 1 and at the kept LANES give bitwise the same
-    q', u' over a few steps, on flat ANYmal, ANYmal on the trot scene's
+  * Bodies built at FS_LANES = 1, at the kept LANES and at WIDE give bitwise
+    the same q', u' over a few steps, on flat ANYmal, ANYmal on the trot scene's
     terrains, the sphere-box stack, the rock on terrain and a yawed cube on
     a flat field (its 4 bottom vertices equally deep: the mesh selection's
     tie). The lanes change which lane computes a value, never its
     expression, so any difference is an index mistake: an item of a lane
     region done twice or not at all, or a shared value read before it is
     written (the host fills the shared memory with NaN before each world).
+    The cone solve's argmins over the lanes take here their host form, a
+    serial first-match scan over the lanes' partial minima
+    (torch_port_util._HOST_PRE), which the card's warp reductions must
+    equal.
   * The per-world operation and height-load tallies of the six scenes are
     pinned: the lanes split the work, they do not change it.
-  * The shared-memory size of a block, and its refusal above what a block
-    can hold.
+  * The shared-memory size of a block at both widths, and its refusal above
+    what a block can hold.
+  * The width rule (`lanes_for`): WIDE where the batch's worlds, a warp
+    each, fit the card in one wave (of at most one warp per scheduler where
+    they probe a heightmap); the wide build is not built for a batch past
+    what it could hold.
+  * The emitter's FMAs (`_fuse_products`), and both builds registered
+    without nvcc's own contraction.
 
 Races between lanes show only on the card (tests/test_torch_cuda.py,
 chip_smoke.py). The scenes are chip_smoke.py's, on the CPU, in float32."""
@@ -90,9 +100,9 @@ def _roll(host, q, u, pd, hts, steps):
 
 @pytest.mark.parametrize("name", ["flat", "terrain", "stack", "rock", "cube"])
 def test_lane_counts_agree_bitwise(name, tmp_path):
-  """Host bodies at FS_LANES = 1 and at LANES: the same q', u', bit for
-  bit, after each scene's steps, with its contacts acting (in at least 6
-  of the 8 worlds at the end)."""
+  """Host bodies at FS_LANES = 1, at LANES and at WIDE: the same q', u',
+  bit for bit, after each scene's steps, with its contacts acting (in at
+  least 6 of the 8 worlds at the end)."""
   from raisimlib_torch.ops import collision as coll
   from raisimlib_torch.ops import dynamics, gpu_step
 
@@ -100,10 +110,11 @@ def test_lane_counts_agree_bitwise(name, tmp_path):
   sd = _sd(scene, use_pd)
   q, u, pd, hts, steps = _states(name, scene)
   out = [_roll(host_step(sd, tmp_path, lanes=n, opt="-O0"), q, u, pd, hts, steps)
-         for n in (1, gpu_step.LANES)]
-  (q1, u1), (qg, ug) = out
+         for n in (1, gpu_step.LANES, gpu_step.WIDE)]
+  q1, u1 = out[0]
   assert np.isfinite(q1).all() and np.isfinite(u1).all()
-  assert np.array_equal(q1, qg) and np.array_equal(u1, ug)
+  for qg, ug in out[1:]:
+    assert np.array_equal(q1, qg) and np.array_equal(u1, ug)
   field = None if hts is None else scene.field.replace(heights=hts.float())
   c = coll.collide(scene.geoms, scene.pairs, dynamics.fk(scene.model, torch.tensor(q1)), field)
   assert float(c.active.float().amax(1).mean()) >= 0.75    # the contacts act
@@ -120,22 +131,28 @@ def test_tallies_are_pinned():
 
 
 def test_shared_memory_per_block():
-  """Flat ANYmal: 1332 floats per world (the 49 columns of W and v_free, 264
-  slots of J, 12 x 6 of Gii, z, 32 energies, 32 sines and cosines), 4
-  worlds a block at 8 lanes, as the source says; a block of 16 two-lane
-  worlds (above 48 KB, dynamic) fits, and a scene whose block would need
-  more than 227 KB is refused. The register cap of 128 (16 blocks an SM)
-  goes to the stack, whose blocks 16 fit in an SM's shared memory, and not
-  to ANYmal."""
+  """Flat ANYmal: 1300 floats per world (the 49 columns of W and v_free, 264
+  slots of J, 12 x 6 of Gii, z, 32 sines and cosines), 4 worlds a block at
+  8 lanes and one at 32, as the sources say, which differ only in their
+  lane count and register cap; a block of 16 two-lane worlds (above 48 KB,
+  dynamic) fits, and a scene whose block would need more than 227 KB is
+  refused. The register cap of 128 (16 blocks an SM) goes to the stack,
+  whose blocks 16 fit in an SM's shared memory, and not to ANYmal."""
   from raisimlib_torch.ops import gpu_step
 
   sd = _sd(*_scene("flat"))
-  per_world = 49 * 18 + 264 + 12 * 6 + 18 + 32 + 2 * 32
+  per_world = 49 * 18 + 264 + 12 * 6 + 18 + 2 * 32
   assert gpu_step.LANES == 8 and gpu_step.smem_bytes(sd) == 4 * 4 * per_world
+  assert gpu_step.WIDE == 32 and gpu_step.smem_bytes(sd, gpu_step.WIDE) == 4 * per_world
   src = gpu_step.kernel_source(sd)[0]
   assert f"#define FS_SMEM_WORLD {per_world}\n" in src and f"#define FS_LANES {gpu_step.LANES}\n" in src
   lines = [ln.strip() for ln in src.splitlines()]
   assert lines.count("FS_LANES_BEGIN") == lines.count("FS_LANES_END") > 1
+  wide = gpu_step.kernel_source(sd, gpu_step.WIDE)[0]
+  cap = gpu_step.min_blocks(sd, gpu_step.WIDE)
+  assert wide == src.replace(f"#define FS_LANES {gpu_step.LANES}\n",
+                             f"#define FS_LANES {gpu_step.WIDE}\n").replace(
+      "#define FS_MIN_BLOCKS 1\n", f"#define FS_MIN_BLOCKS {cap}\n")
   assert 48 * 1024 < gpu_step.smem_bytes(sd, 2) <= gpu_step.SMEM_BLOCK_LIMIT
   wide = sd._replace(slots=sd.slots * 30)                  # 360 contact slots
   with pytest.raises(gpu_step.FusedStepUnsupported, match="shared memory"):
@@ -144,3 +161,119 @@ def test_shared_memory_per_block():
     gpu_step.kernel_source(wide)
   assert gpu_step.min_blocks(sd) == 1 and "#define FS_MIN_BLOCKS 1\n" in src
   assert gpu_step.min_blocks(_sd(*_scene("stack"))) == 16
+
+
+@pytest.mark.parametrize("B, blocks_per_sm, lanes", [
+    (1, 8, 32), (4, 8, 32), (128, 8, 32), (384, 8, 32), (1024, 8, 32), (1056, 8, 32),
+    (1057, 8, 8), (2048, 8, 8), (2048, 16, 32), (16384, 8, 8), (16384, 64, 8)])
+def test_width_rule(B, blocks_per_sm, lanes):
+  """`lanes_for` on an H100's 132 SMs: 32 lanes where the B worlds, one warp
+  each, fit the card in one wave of the wide build's blocks (1056 worlds at
+  8 blocks an SM), else 8."""
+  from raisimlib_torch.ops import gpu_step
+
+  assert gpu_step.lanes_for(B, 132, blocks_per_sm) == lanes
+
+
+@pytest.mark.parametrize("B, blocks_per_sm, lanes", [
+    (1, 8, 32), (384, 8, 32), (528, 8, 32), (529, 8, 8), (768, 8, 8), (1024, 8, 8),
+    (264, 2, 32), (265, 2, 8), (16384, 8, 8)])
+def test_width_rule_on_heightmaps(B, blocks_per_sm, lanes):
+  """`lanes_for` where the worlds probe a heightmap: the wave holds at most
+  one warp per scheduler, 4 an SM (528 worlds on 132 SMs), and no more than
+  the wide build's blocks; ANYmal on terrain (K1c) thus takes 32 lanes at
+  the trot MPPI's B = 384 and 8 at 768 and 1024."""
+  from raisimlib_torch.ops import gpu_step
+
+  assert gpu_step.lanes_for(B, 132, blocks_per_sm, probes=True) == lanes
+  kern = gpu_step.FusedKernel(_sd(*_scene("terrain")))
+  assert kern.loads_per_world > 0
+
+
+@pytest.mark.parametrize("lines, fused", [
+    (["float t1 = a * b;", "float t2 = t1 + c;"], ["float t2 = fmaf(a, b, c);"]),
+    (["float t1 = a * b;", "float t2 = t1 - c;"], ["float t2 = fmaf(a, b, -(c));"]),
+    (["float t1 = a * b;", "float t2 = c - t1;"], ["float t2 = fmaf(-(a), b, c);"]),
+    (["float t1 = a * b;", "float t3 = c * d;", "float t4 = t1 + t3;"],
+     ["float t1 = a * b;", "float t4 = fmaf(c, d, t1);"]),
+    (["float t1 = a * b;", "float t5 = sqrtf(e);", "bool t6 = t5 < a;", "float t2 = t1 + t5;"],
+     ["float t5 = sqrtf(e);", "bool t6 = t5 < a;", "float t2 = fmaf(a, b, t5);"]),
+    (["float t1 = a * b;", "float t2 = t1 + c;", "float t3 = t1 + d;"], None),
+    (["float t1 = z[0] * b;", "z[0] = c;", "float t2 = t1 + c;"], None),
+    (["float t1 = a * b;", "if (l == 0) {", "  float t2 = t1 + c;", "}"], None),
+])
+def test_products_fuse_into_their_one_sum(lines, fused):
+  """`_fuse_products`: a product that one sum or difference reads, and
+  nothing else, becomes an fmaf there (of two, the second), where only
+  definitions lie between them; a product read twice, or one whose
+  operands a store or a brace may change or hide, stays (None: the lines
+  unchanged)."""
+  from raisimlib_torch.ops import gpu_step
+
+  assert gpu_step._fuse_products(lines) == (lines if fused is None else fused)
+
+
+def test_builds_compile_without_contraction(monkeypatch):
+  """Both builds of a scene compile with --fmad=false, so that their only
+  FMAs are the source's; `_build.build()` compiles the narrow build with
+  the other kernels and leaves the wide one to its first launch."""
+  from raisimlib_torch import _build
+  from raisimlib_torch.ops import gpu_step
+
+  kern = gpu_step.FusedKernel(_sd(*_scene("flat")))
+  assert kern.source.count("fmaf(") > 3000
+  for lanes, lazy in ((gpu_step.LANES, False), (gpu_step.WIDE, True)):
+    spec = _build.KERNELS[kern.names[lanes]]
+    assert spec["defines"] == ("--fmad=false",) and spec["lazy"] == lazy
+  started = []
+
+  class Nvcc:
+    returncode = 1
+
+    def __init__(self, cmd, **_):
+      started.append(cmd[-1])
+
+    def communicate(self):
+      return "", None
+
+  monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+  monkeypatch.setattr(_build.subprocess, "Popen", Nvcc)
+  monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+  with pytest.raises(RuntimeError, match="nvcc failed"):
+    _build.build()
+  assert _build.KERNELS[kern.names[gpu_step.LANES]]["source"] in started
+  assert _build.KERNELS[kern.names[gpu_step.WIDE]]["source"] not in started
+
+
+def test_wide_build_waits_past_its_bound(monkeypatch):
+  """`FusedKernel.lanes` on a card of 132 SMs: a batch past what the wide
+  build could hold in one wave before its registers count (32 blocks an
+  SM for ANYmal, of the 37 that its shared memory allows) takes 8 lanes
+  without loading the wide build; below it, the build's blocks per SM
+  (here 8) decide, read once."""
+  import types
+
+  from raisimlib_torch import _build
+  from raisimlib_torch.ops import gpu_step
+
+  kern = gpu_step.FusedKernel(_sd(*_scene("flat")))
+  loaded = []
+
+  def query(ref):
+    ref._obj.value = 8
+    return 0
+
+  def load(name):
+    loaded.append(name)
+    return types.SimpleNamespace(fused_step_blocks_per_sm=query)
+
+  props = types.SimpleNamespace(multi_processor_count=132, max_threads_per_multi_processor=2048)
+  monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: props)
+  monkeypatch.setattr(torch.cuda, "device", lambda d: __import__("contextlib").nullcontext())
+  monkeypatch.setattr(_build, "load", load)
+  assert gpu_step.SM_SMEM // (gpu_step.smem_bytes(kern.sd, gpu_step.WIDE) + 1024) == 37
+  assert kern.lanes(16384, "card") == kern.lanes(132 * 32 + 1, "card") == gpu_step.LANES
+  assert loaded == []
+  assert kern.lanes(132 * 32, "card") == gpu_step.LANES
+  assert kern.lanes(1056, "card") == kern.lanes(1, "card") == gpu_step.WIDE
+  assert loaded == [kern.names[gpu_step.WIDE]]

@@ -194,7 +194,7 @@ def test_cap_shape(hosts):
   block at 8 lanes (4 would pass 227 KB), 1 lane and 8 lanes bitwise equal,
   and within the tiers of the twin."""
   args, kinds = random_problem(3, 48, 9, nv=64)
-  assert block(hosts(8), 48, 64, ("cone",) * 48) == (3, 3 * 4 * 19328)
+  assert block(hosts(8), 48, 64, ("cone",) * 48) == (3, 3 * 4 * 19296)
   u8, l8 = run_host(hosts(8), args, kinds)
   u1, l1 = run_host(hosts(1), args, kinds)
   assert np.array_equal(u8, u1, equal_nan=True) and np.array_equal(l8, l1, equal_nan=True)
@@ -203,11 +203,11 @@ def test_cap_shape(hosts):
 
 def test_block_shape_and_row_table(hosts):
   """The kernel's worlds per block and shared bytes (`mf_block`, through the
-  host builds): ANYmal 2196 floats a world (48 used rows of 18), 2 worlds a
+  host builds): ANYmal 2164 floats a world (48 used rows of 18), 2 worlds a
   block at the kept 16 lanes, 4 at 8, 8 at 4; at the caps (nc 48, nv 64,
-  19,328 floats) 2 at 16 lanes and 3 at 8 (4 would pass 227 KB); at nv 100
+  19,296 floats) 2 at 16 lanes and 3 at 8 (4 would pass 227 KB); at nv 100
   one world, a half warp at 16 lanes; at nc 100, nv 128 (one world's rows
-  pass 227 KB) the device-memory layout, 1,752 floats a world, 2 a block;
+  pass 227 KB) the device-memory layout, 1,720 floats a world, 2 a block;
   none where not even one world's small arrays fit (nc 4200: the launch
   refuses it, and the wrapper raises). The row table: kinds, each solver
   row's first staged row, each staged row's input row."""
@@ -219,11 +219,11 @@ def test_block_shape_and_row_table(hosts):
   assert gc._used_rows(kinds) == 48
   assert _build.MF_LANES == 16
   for lanes, wpb in ((16, 2), (8, 4), (4, 8)):
-    assert block(hosts(lanes), 24, 18, kinds) == (wpb, wpb * 4 * 2196)
+    assert block(hosts(lanes), 24, 18, kinds) == (wpb, wpb * 4 * 2164)
   cone48 = ("cone",) * 48
-  assert block(hosts(16), 48, 64, cone48) == (2, 2 * 4 * 19328)
-  assert block_layout(hosts(16), 48, 100, cone48) == (1, 4 * 29768, "shared")
-  assert block_layout(hosts(16), 100, 128, ("cone",) * 100) == (2, 2 * 4 * 1752, "device")
+  assert block(hosts(16), 48, 64, cone48) == (2, 2 * 4 * 19296)
+  assert block_layout(hosts(16), 48, 100, cone48) == (1, 4 * 29736, "shared")
+  assert block_layout(hosts(16), 100, 128, ("cone",) * 100) == (2, 2 * 4 * 1720, "device")
   assert block(hosts(16), 4200, 8, ("cone",) * 4200) == (0, 0)
 
 
@@ -285,7 +285,7 @@ def test_layout_boundary_between_6_and_7_boxes(hosts):
   assert (wpb, layout) == (1, "shared") and 160_000 < nbytes < 175_000
   nc7, nv7 = box_pile_shape(7)
   wpb, nbytes, layout = block_layout(host, nc7, nv7, ("cone",) * nc7)
-  assert (wpb, layout) == (2, "device") and nbytes == 2 * 4 * (2 * nv7 + 14 * nc7 + 32 + 64)
+  assert (wpb, layout) == (2, "device") and nbytes == 2 * 4 * (2 * nv7 + 14 * nc7 + 64)
   args, kinds = random_problem(2, nc7, 11, nv=nv7)
   u, lam = run_host(host, args, kinds)
   assert_within_tiers(args, kinds, u, lam)

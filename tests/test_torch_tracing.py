@@ -12,7 +12,8 @@ records, reset) and portbench's three readers of its spans:
     device's timeline), the median under 50 us;
   * `mppi_ramp_ms.mpc`, `k1_wrapper_us.mpc` and `k1_enqueue_us.mpc` on
     records made by hand read the values worked out by hand, and None
-    where there are no records.
+    where there are no records;
+  * on the card, each `k1.enqueue` names the width its launch took.
 """
 
 import os
@@ -173,3 +174,28 @@ def test_readers_on_records_made_by_hand(monkeypatch, name, value):
   assert read(None) is None                            # nothing recorded
   monkeypatch.setattr(profiling, "records", _records)
   assert read(None) == pytest.approx(value, rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_k1_enqueue_names_its_width():
+  """On the card, each K1 launch's `k1.enqueue` span carries its batch and
+  the lanes per world the width rule took: 32 at B = 384 (one wave of
+  one-world blocks on an H100), 8 at B = 16384."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from raisimlib_torch.ops import gpu_step
+  from raisimlib_torch.ops.integrator import State
+
+  scene = torch_anymal_scene(dtype=torch.float32, device="cuda")
+  step = gpu_step.make_step_batch_fused(scene)
+  q0 = scene.model.q_init.to(torch.float32)
+  pd = torch.cat([torch.zeros(6, device="cuda"), q0[7:]])
+  with profiling.tracing(), torch.inference_mode():
+    for B in (384, 16384):
+      s = State(q=q0.repeat(B, 1), u=torch.zeros((B, 18), device="cuda"),
+                t=torch.zeros(B, device="cuda"))
+      step(s, torch.zeros((B, 18), device="cuda"), pd.repeat(B, 1))
+    torch.cuda.synchronize()
+  recs = [r for r in profiling.records() if r.name == "k1.enqueue"]
+  assert [r.attrs for r in recs] == [{"B": 384, "lanes": gpu_step.WIDE},
+                                     {"B": 16384, "lanes": gpu_step.LANES}]

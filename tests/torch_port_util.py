@@ -239,18 +239,50 @@ def anymal_factors(B, seed=0):
   return [a.numpy().astype(np.float32) for a in args], cfg.row_kinds
 
 
+# The host forms of the kernels' lane regions, lane loops and exchanges
+# (csrc/cone_solve.cuh), for a host build of a body, and of their FMAs.
+_HOST_LANES = r"""
+// the kernel's lane regions and lane loops, run for lane 0, 1, ..., FS_LANES - 1
+// in turn; a lane's own values, an array over the lanes (lane l's at [l])
+#define FS_LANES_BEGIN for (int l = 0; l < FS_LANES; ++l) {
+#define FS_LANES_END }
+#define FS_EACH_BEGIN FS_LANES_BEGIN
+#define FS_EACH_END FS_LANES_END
+#define FS_OWN(T, x, n) T x[FS_LANES][n]
+#define FS_MINE(x, i) x[l][i]
+#define FS_FROM(x, i, src) x[src][i]
+// the argmin over the lanes: a serial first-match scan over their partial
+// minima, the least key and, among equal keys, the least index
+#define FS_ARGMIN(key, k, kmin_key, kmin)                                \
+  {                                                                      \
+    kmin_key = key[0][0];                                                \
+    kmin = k[0][0];                                                      \
+    for (int l_ = 1; l_ < FS_LANES; ++l_)                                \
+      if (key[l_][0] < kmin_key || (key[l_][0] == kmin_key && k[l_][0] < kmin)) { \
+        kmin_key = key[l_][0];                                           \
+        kmin = k[l_][0];                                                 \
+      }                                                                  \
+  }
+static inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+}
+// each FMA as the product and the sum it fuses, so that a body rounds as the
+// twin does (the card's builds fuse them: their roundings differ from the
+// twin's and agree with each other)
+#define fmaf(a, b, c) ((a) * (b) + (c))
+"""
 _HOST_PRE = r"""
 #include <math.h>
 #include <stddef.h>
+#include <string.h>
 #include <vector>
 #define __device__
 #define __forceinline__ inline
 #define __ldg(p) (*(p))
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
-// the kernel's lane regions, run for lane 0, 1, ..., FS_LANES - 1 in turn
-#define FS_LANES_BEGIN for (int l = 0; l < FS_LANES; ++l) {
-#define FS_LANES_END }
-"""
+""" + _HOST_LANES
 _HOST_POST = r"""
 extern "C" void host_step(const float* q, const float* u, const float* tau, const float* pd,
                           const float* hts, long long hts_stride, float* qo, float* uo, int B) {
@@ -301,15 +333,13 @@ def host_step(sd, tmp_path, lanes=None, opt="-O1"):
 _MF_HOST = r"""
 #include <math.h>
 #include <stddef.h>
+#include <string.h>
 #include <vector>
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __ldg(p) (*(p))
-// the kernel's lane regions, run for lane 0, 1, ..., FS_LANES - 1 in turn
-#define FS_LANES_BEGIN for (int l = 0; l < FS_LANES; ++l) {
-#define FS_LANES_END }
-#include "mf_solve.cuh"
+""" + _HOST_LANES + r"""#include "mf_solve.cuh"
 
 // the kernel's frame: blocks of wpb worlds in the layout of mf_block, one
 // after another, each block's shared memory a host array filled with NaN

@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with a CUDA device:
 
-    python3 tools/lanes_sweep.py [--variants 4 8 16 8:12] [--batches 384 1024 2048 16384]
+    python3 tools/lanes_sweep.py [--variants 8 32 32:1 32:16] [--batches 1 4 128 ... 16384]
                                  [--scenes flat terrain stack cylinder cone rock]
 
 For each scene, flat ANYmal (K1a, chip_smoke.py's phase 11), ANYmal on the
@@ -20,13 +20,18 @@ then those states 20 steps on (200 for the debris, which land in 90-150;
 contacts active), where each build is timed
 alone (CUDA events, 20 launches after a warm-up). Prints one line per
 (scene, variant, B) and ptxas's figures per build, and with --json PATH
-writes the rows there. Exits non-zero if a build disagrees with the twin.
+writes the rows there. After each scene it prints, at each batch, the
+width the kernel's rule takes (`FusedKernel.lanes`) beside the fastest of
+the LANES and WIDE builds that the rule would build (the variants without
+M). Exits non-zero if a build disagrees with the twin.
 
-With --clocks it also builds each scene's kept source with clock64() reads
-at the phase boundaries, launches it once at each batch from the 20-step
-states, and prints, for the first world of the first block, the cycles of
-phases A-E, F-G (the triangular solves and the hoisted blocks), H (the
-sweeps) and I (integration and stores).
+With --clocks it also builds each scene's source at LANES and at WIDE lanes
+with clock64() reads at the phase boundaries, launches each once at each
+batch from the 20-step states, and prints, for the first world of the first
+block, the cycles of phases A-E, F-G (the triangular solves and the hoisted
+blocks), H (the sweeps) and I (integration and stores), and phase H per
+cone solve (H over the sweeps times the contact slots; the limit rows'
+share included).
 """
 
 import argparse
@@ -40,9 +45,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def with_clocks(src):
+def with_clocks(src, cones):
   """The generated source with clock64() reads at the phase boundaries and a
-  printf of their differences from lane 0 of the first world."""
+  printf of their differences from lane 0 of the first world, and of phase
+  H's over `cones`."""
   lines = src.splitlines()
   at = lambda key: next(i for i, ln in enumerate(lines) if key in ln)   # noqa: E731
   sweep = at("for (int sweep")
@@ -62,8 +68,8 @@ def with_clocks(src):
     if i == end:
       out.append("  const long long c3 = clock64();")
   text = "\n".join(out)
-  stamp = ('  if (blockIdx.x == 0 && threadIdx.x == 0) printf("    %lld %lld %lld %lld\\n", '
-           "c1 - c0, c2 - c1, c3 - c2, clock64() - c3);\n")
+  stamp = ('  if (blockIdx.x == 0 && threadIdx.x == 0) printf("    %lld %lld %lld %lld; %lld\\n", '
+           f"c1 - c0, c2 - c1, c3 - c2, clock64() - c3, (c3 - c2) / {max(cones, 1)});\n")
   tail = text.rindex("}\n\n}  // namespace")
   return text[:tail] + stamp + text[tail:]
 
@@ -76,8 +82,9 @@ def main():
   from raisimlib_torch.ops import gpu_step as gs
 
   ap = argparse.ArgumentParser()
-  ap.add_argument("--variants", nargs="+", default=["4", "8", "16"])
-  ap.add_argument("--batches", type=int, nargs="+", default=[384, 1024, 2048, 16384])
+  ap.add_argument("--variants", nargs="+", default=["8", "32", "32:1", "32:16"])
+  ap.add_argument("--batches", type=int, nargs="+",
+                  default=[1, 4, 128, 384, 768, 1024, 2048, 4096, 16384])
   ap.add_argument("--scenes", nargs="+", default=["flat", "terrain", "stack"],
                   choices=["flat", "terrain", "stack", "cylinder", "cone", "rock"])
   ap.add_argument("--clocks", action="store_true")
@@ -117,9 +124,11 @@ def main():
     s = cs.debris_states(torch, scenes[label], hts, seed=seed)
     return s, torch.zeros_like(s.u), None, hts
 
-  builds = {}
+  builds, kept = {}, {}
   for label, step in steps.items():
     for G, M in variants:
+      if not M and G in (gs.LANES, gs.WIDE):
+        kept[label, G] = M or gs.min_blocks(step.sd, G)
       try:
         smem = gs.smem_bytes(step.sd, G)
       except gs.FusedStepUnsupported as e:
@@ -128,10 +137,13 @@ def main():
       M = M or gs.min_blocks(step.sd, G)
       head = f"#define FS_LANES {G}\n#define FS_MIN_BLOCKS {M}\n"
       builds[label, G, M] = (_build.add_generated(f"fused_step_l{G}_m{M}",
-                                                  head + step.kernel.source, gs._SYMBOLS), smem)
-  clocked = {label: _build.add_generated("fused_step_clocks", with_clocks(step.kernel.source),
-                                         gs._SYMBOLS)
-             for label, step in steps.items()} if args.clocks else {}
+                                                  head + step.kernel.source, gs._SYMBOLS,
+                                                  gs._FLAGS), smem)
+  clocked = {(label, G): _build.add_generated(
+      "fused_step_clocks", f"#define FS_LANES {G}\n#define FS_MIN_BLOCKS {gs.min_blocks(step.sd, G)}\n"
+      + with_clocks(step.kernel.source, step.sd.sweeps * len(step.sd.slots)), gs._SYMBOLS,
+      gs._FLAGS)
+      for label, step in steps.items() for G in (gs.LANES, gs.WIDE)} if args.clocks else {}
   built = _build.build([n for n, _ in builds.values()] + [st.kernel.name for st in steps.values()]
                        + list(clocked.values()))
   rows, bad = [], []
@@ -149,10 +161,11 @@ def main():
         s20 = s
         for _ in range(20 if label in ("flat", "terrain", "stack") else 200):
           s20 = step(s20, tau, pd, field_heights=hts)
-        if label in clocked:
-          print(f"  {label}, B={B}, G={gs.LANES}: cycles of A-E, F-G, H, I:", flush=True)
+        for G in (gs.LANES, gs.WIDE) if clocked else ():
+          print(f"  {label}, B={B}, G={G}: cycles of A-E, F-G, H, I; then H per cone solve "
+                f"(H / {step.sd.sweeps * len(step.sd.slots)}):", flush=True)
           qo, uo = torch.empty_like(s.q), torch.empty_like(s.u)
-          _build.load(clocked[label]).fused_step_launch(
+          _build.load(clocked[label, G]).fused_step_launch(
               s20.q.data_ptr(), s20.u.data_ptr(), tau.data_ptr(),
               None if pd is None else pd.data_ptr(), hp, stride, qo.data_ptr(), uo.data_ptr(), B,
               stream)
@@ -187,6 +200,14 @@ def main():
                 f"{float(du.max()):.2e}{'' if ok else '  DISAGREES'}", flush=True)
           if not ok:
             bad.append(f"{label} G={G} M={M} B={B}")
+        times = {r["lanes"]: r["kernel_ms"] for r in rows if r["scene"] == label
+                 and r["B"] == B and kept.get((label, r["lanes"])) == r["min_blocks"]}
+        if len(times) == 2:
+          rule = step.kernel.lanes(B, s.q.device)
+          best = min(times, key=times.get)
+          print(f"  {label}, B={B}: the rule takes G={rule}, the faster is G={best} "
+                f"({times[gs.LANES]:.4f} against {times[gs.WIDE]:.4f} ms)"
+                f"{'' if rule == best else '  RULE MISSES'}", flush=True)
   if args.json:
     with open(args.json, "w") as f:
       json.dump({"card": smi.stdout.strip(), "rows": rows}, f, indent=1)
