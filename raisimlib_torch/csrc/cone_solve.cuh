@@ -6,8 +6,14 @@
 //
 // Replaces the TPU device function raisimlib_tpu/ops/pallas_contact.py
 // `_cone_solve_vec` + `_stick_vec`, which the TPU kernels inline into their
-// Gauss-Seidel loops. All are __device__ functions, inlined by their
-// kernels.
+// Gauss-Seidel loops. All are __device__ functions inlined where they are
+// called, except `cone_solve_lanes` itself, whose attribute the includer
+// may choose by defining RSL_CONE_SOLVE_ATTR before the include (default
+// __forceinline__): the fused step, which calls it from one site per
+// contact slot in every sweep, defines __noinline__ where its sweep holds
+// enough slots for one called copy to beat a copy a slot
+// (ops/gpu_step.py `solve_called`); the matrix-free solve, one call site in
+// its row loop, keeps the default.
 //
 // Cases, as in ops/contact.py `cone_solve` (RA-L 2018 semantics):
 //   stick: lam = -Gii^-1 c (cofactor inverse), accepted strictly inside the
@@ -26,6 +32,10 @@
 // around the solve.
 
 #pragma once
+
+#ifndef RSL_CONE_SOLVE_ATTR
+#define RSL_CONE_SOLVE_ATTR __forceinline__
+#endif
 
 namespace rsl {
 
@@ -183,10 +193,10 @@ __device__ __forceinline__ void cone_grid_trig(const ConeConsts& cc, float* trig
 // up to the FMAs: sincosf of the same angle, and a refinement point's
 // offset, 0.5 (j - 2) times the span, is exact; the argmins select, and ties
 // go to the lowest index. So the impulse is the same for any FS_LANES.
-__device__ __forceinline__ void cone_solve_lanes(const float* gs, float c0, float c1,
-                                                 float c2, float mu, const ConeConsts& cc,
-                                                 const float* trig, const int fs_lane,
-                                                 float* out) {
+__device__ RSL_CONE_SOLVE_ATTR void cone_solve_lanes(const float* gs, float c0, float c1,
+                                                     float c2, float mu, const ConeConsts& cc,
+                                                     const float* trig, const int fs_lane,
+                                                     float* out) {
   float g[6];                         // gs may be shared: read it once
 #pragma unroll
   for (int k = 0; k < 6; ++k) g[k] = gs[k];

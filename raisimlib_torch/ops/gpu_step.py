@@ -1784,7 +1784,7 @@ _SOURCE_HEAD = """\
 #define FS_LANES_END }} __syncwarp();
 #define FS_LANE_MASK 0xffffffffu
 #endif
-
+{solve}
 #include "cone_solve.cuh"
 
 // the body loads every input and names every intermediate; nvcc drops the
@@ -1865,6 +1865,41 @@ def min_blocks(sd: _StaticData, lanes: int = LANES) -> int:
   if lanes == WIDE:
     return 1
   return 16 if 16 * (smem_bytes(sd, lanes) + 1024) <= SM_SMEM else 1
+
+
+# The sweeps call one out-of-line copy of the cone solve from each contact
+# slot where the build at `lanes` holds at least CALL_MIN_SLOTS[lanes] slots
+# and, at WIDE lanes, nv is at most CALL_WIDE_MAX_NV (`solve_called`).
+CALL_MIN_SLOTS = {LANES: 8, WIDE: 12}
+CALL_WIDE_MAX_NV = 18
+_SOLVE_HEAD = {
+    True: "// The cone solve out of line (gpu_step.solve_called): each contact slot of a\n"
+          "// sweep calls the one copy of rsl::cone_solve_lanes.\n"
+          "#define RSL_CONE_SOLVE_ATTR __noinline__\n",
+    False: "// The cone solve inlined into each contact slot (gpu_step.solve_called).\n"}
+
+
+def solve_called(sd: _StaticData, lanes: int = LANES) -> bool:
+  """Whether the scene's build at `lanes` lanes per world calls one
+  out-of-line copy of the cone solve from each contact slot of a sweep
+  (RSL_CONE_SOLVE_ATTR __noinline__), rather than inline a copy into each
+  slot (cone_solve.cuh's default). Copies inlined slot by slot make the
+  sweeps' loop larger than an SM's instruction cache once there are enough
+  of them, and sooner at 8 lanes, where a copy unrolls 4 grid points a
+  lane, than at 32 (one); a call saves and restores the live registers
+  around each solve. Each build alone on an H100 (tools/lanes_sweep.py
+  --solve called inlined), the called build's time over the inlined one's:
+  at 8 lanes ANYmal (12 slots, nv = 18) 0.69-0.75 at B = 1-16384 (the iLQR
+  scene 0.72 at 39,200), the sphere-box stack (10) 0.74-0.90 at
+  384-16384, Atlas (32, nv = 29) 0.87-0.88 at 1024 and 16384, but the
+  cylinder (6 slots) 1.046, the cone (4) 1.065 and the rock (4) 0.996 at
+  16384; at 32 lanes ANYmal 0.68-0.79 at B = 1-16384, but the stack
+  1.017-1.051 at 384 and 1024, and Atlas 1.145 at 1024 and 1.260 at 16384
+  (its spill stores 10,248 -> 11,616 B a thread; the cause is not
+  separated from nv)."""
+  if len(sd.slots) < CALL_MIN_SLOTS[WIDE if lanes == WIDE else LANES]:
+    return False
+  return lanes != WIDE or sd.nv <= CALL_WIDE_MAX_NV
 
 
 def lanes_for(B: int, sms: int, blocks_per_sm: int, probes: bool = False) -> int:
@@ -1964,7 +1999,8 @@ def _fuse_products(lines):
 
 
 def _with_head(sd: _StaticData, head: dict, body: str, lanes: int) -> str:
-  return _SOURCE_HEAD.format(lanes=lanes, min_blocks=min_blocks(sd, lanes), **head) + body
+  return _SOURCE_HEAD.format(lanes=lanes, min_blocks=min_blocks(sd, lanes),
+                             solve=_SOLVE_HEAD[solve_called(sd, lanes)], **head) + body
 
 
 def kernel_source(sd: _StaticData, lanes: int = LANES):
@@ -1993,13 +2029,15 @@ class FusedKernel:
   compiled with nvcc at the first launch that takes it. `_build.build()`
   compiles the LANES build with the other kernels, in parallel, and leaves
   the wide one to its first launch. `name` and `source` are the LANES
-  build's, `names[lanes]` each build's."""
+  build's, `names[lanes]` each build's, `called[lanes]` whether it calls
+  the cone solve out of line (`solve_called`)."""
 
   def __init__(self, sd: _StaticData):
     self.sd = sd
     self.smem_bytes = smem_bytes(sd)             # per 32-thread block of the LANES build
     head, body, self.ops_per_world, self.loads_per_world = _source_body(sd)
     self.sources = {n: _with_head(sd, head, body, n) for n in (LANES, WIDE)}
+    self.called = {n: solve_called(sd, n) for n in (LANES, WIDE)}
     self.names = {n: _build.add_generated("fused_step", src, _SYMBOLS, _FLAGS, lazy=n == WIDE)
                   for n, src in self.sources.items()}
     self.source, self.name = self.sources[LANES], self.names[LANES]
@@ -2073,7 +2111,8 @@ class FusedKernel:
     lanes = self.lanes(B, q.device) if lanes is None else lanes
     lib = _build.load(self.names[lanes])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with profiling.span("k1.enqueue", B=B, lanes=lanes):
+    with profiling.span("k1.enqueue", B=B, lanes=lanes,
+                        solve="called" if self.called[lanes] else "inlined"):
       rc = lib.fused_step_launch(q.data_ptr(), u.data_ptr(), tau.data_ptr(),
                                  pd.data_ptr() if pd is not None else None,
                                  hts, stride, qo.data_ptr(), uo.data_ptr(), B, stream)
@@ -2081,6 +2120,7 @@ class FusedKernel:
       raise RuntimeError(f"fused_step kernel launch failed: cudaError {rc}")
     make_step_batch_fused.launches += 1
     make_step_batch_fused.launches_wide += int(lanes == WIDE)
+    make_step_batch_fused.launches_called += int(self.called[lanes])
     return qo, uo
 
 
@@ -2161,7 +2201,9 @@ def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
   `field_heights` (B, nx, ny) gives each world its own terrain; None uses
   the scene's field for every world. CUDA tensors (float32) launch the
   generated kernel and count one launch in `make_step_batch_fused.launches`
-  (and in `.launches_wide` where it took the wide build); CPU tensors run
+  (and in `.launches_wide` where it took the wide build, in
+  `.launches_called` where that build calls the cone solve out of line,
+  `solve_called`); CPU tensors run
   the twin `_fused_plain`. Gradients differentiate
   pipeline.step_batch with the same heights (its contact solve's backward
   runs `_mf_pure`), the forward/backward split of the JAX package's custom
@@ -2172,6 +2214,7 @@ def make_step_batch_fused(scene, config=None, use_pd: bool = True) -> FusedStep:
 
 make_step_batch_fused.launches = 0
 make_step_batch_fused.launches_wide = 0
+make_step_batch_fused.launches_called = 0
 
 
 def fused_step_cost(sd: _StaticData, B: int, ops_per_world: int,

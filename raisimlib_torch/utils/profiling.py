@@ -21,7 +21,9 @@ The spans the program opens, and what reads them:
   mppi.weights           the weighted (or elite) average
   dyn.call [B, substeps] mpc/state_map.py: one batched dynamics call
   k1.step [B]            ops/gpu_step.py: FusedStep.__call__ (K1's wrapper)
-  k1.enqueue [B]         the ctypes launch of K1 alone (on the card)
+  k1.enqueue [B, lanes, solve]  the ctypes launch of K1 alone (on the card): the
+                         build's lanes a world, and "called" or "inlined" for
+                         its cone solve (gpu_step.solve_called)
   ilqr.*                 mpc/ilqr.py: the phases of an iLQR iteration
 
 portbench's layer metrics `mppi_ramp_ms.mpc`, `k1_wrapper_us.mpc` and

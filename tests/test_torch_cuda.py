@@ -512,3 +512,57 @@ def test_fused_step_wide_and_narrow_builds_agree_bitwise(terrain):
     assert torch.equal(sk.q, qo) and torch.equal(sk.u, uo), b
   assert torch.equal(again[0].q, again[1].q) and torch.equal(again[0].u, again[1].u)
   assert step.kernel.lanes(16384, s.q.device) == gs.LANES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terrain", [False, True], ids=["flat", "terrain"])
+def test_fused_step_called_and_inlined_solve_agree_bitwise(terrain):
+  """K1 with the cone solve out of line, as the emitter writes it, against
+  the same source without its RSL_CONE_SOLVE_ATTR define (every contact
+  slot then inlines its own copy of the solve, cone_solve.cuh's default):
+  flat ANYmal (K1a) and ANYmal on the 64 fractal terrains (K1c), each at 8
+  and 32 lanes a world, stepped 20 times from the same start at B = 128
+  and 4096, give the same bits in q and u after every step."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+  from raisimlib_torch import _build
+  from raisimlib_torch.ops import gpu_step as gs
+
+  define = "#define RSL_CONE_SOLVE_ATTR __noinline__\n"
+  cs = load_chip_smoke()
+  step = gs.make_step_batch_fused(cs.anymal_scene(torch, kp=120.0, kd=3.0, terrain=terrain)
+                                  if terrain else cs.anymal_scene(torch))
+  names = {}
+  for lanes in (gs.LANES, gs.WIDE):
+    src = step.kernel.sources[lanes]
+    assert step.kernel.called[lanes] and src.count(define) == 1
+    names[lanes] = (step.kernel.names[lanes],
+                    _build.add_generated("fused_step_inlined", src.replace(define, ""),
+                                         gs._SYMBOLS, gs._FLAGS, lazy=True))
+  _build.build([n for pair in names.values() for n in pair])
+  stream = torch.cuda.current_stream().cuda_stream
+  for B in (128, 4096):
+    with torch.inference_mode():
+      if terrain:
+        hts = cs.make_terrains(torch, 64).repeat(B // 64, 1, 1).contiguous()
+        s, pd, _ = cs.terrain_states(torch, step.scene, hts, seed=23)
+      else:
+        hts = None
+        s, pd, _ = cs.standing_states(torch, step.scene, B, seed=23)
+      tau = torch.zeros_like(pd)
+      hp, stride = (None, 0) if hts is None else (hts.data_ptr(), hts.stride(0))
+      for lanes, pair in names.items():
+        runs = []
+        for name in pair:
+          lib, q, u, run = _build.load(name), s.q, s.u, []
+          for _ in range(20):
+            qo, uo = torch.empty_like(q), torch.empty_like(u)
+            rc = lib.fused_step_launch(q.data_ptr(), u.data_ptr(), tau.data_ptr(), pd.data_ptr(),
+                                       hp, stride, qo.data_ptr(), uo.data_ptr(), B, stream)
+            assert rc == 0, f"launch failed: cudaError {rc}"
+            run.append((qo, uo))
+            q, u = qo, uo
+          runs.append(run)
+        torch.cuda.synchronize()
+        for k, ((qc, uc), (qi, ui)) in enumerate(zip(*runs)):
+          assert torch.equal(qc, qi) and torch.equal(uc, ui), (B, lanes, k)

@@ -178,9 +178,11 @@ def test_readers_on_records_made_by_hand(monkeypatch, name, value):
 
 @pytest.mark.cuda
 def test_k1_enqueue_names_its_width():
-  """On the card, each K1 launch's `k1.enqueue` span carries its batch and
-  the lanes per world the width rule took: 32 at B = 384 (one wave of
-  one-world blocks on an H100), 8 at B = 16384."""
+  """On the card, each K1 launch's `k1.enqueue` span carries its batch, the
+  lanes per world the width rule took (32 at B = 384, one wave of one-world
+  blocks on an H100; 8 at B = 16384) and whether that build calls the cone
+  solve out of line (ANYmal's builds both do: `solve_called`), which
+  `launches_called` counts."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device: the kernel has no CPU mode")
   from raisimlib_torch.ops import gpu_step
@@ -190,6 +192,7 @@ def test_k1_enqueue_names_its_width():
   step = gpu_step.make_step_batch_fused(scene)
   q0 = scene.model.q_init.to(torch.float32)
   pd = torch.cat([torch.zeros(6, device="cuda"), q0[7:]])
+  n0 = gpu_step.make_step_batch_fused.launches_called
   with profiling.tracing(), torch.inference_mode():
     for B in (384, 16384):
       s = State(q=q0.repeat(B, 1), u=torch.zeros((B, 18), device="cuda"),
@@ -197,5 +200,6 @@ def test_k1_enqueue_names_its_width():
       step(s, torch.zeros((B, 18), device="cuda"), pd.repeat(B, 1))
     torch.cuda.synchronize()
   recs = [r for r in profiling.records() if r.name == "k1.enqueue"]
-  assert [r.attrs for r in recs] == [{"B": 384, "lanes": gpu_step.WIDE},
-                                     {"B": 16384, "lanes": gpu_step.LANES}]
+  assert [r.attrs for r in recs] == [{"B": 384, "lanes": gpu_step.WIDE, "solve": "called"},
+                                     {"B": 16384, "lanes": gpu_step.LANES, "solve": "called"}]
+  assert gpu_step.make_step_batch_fused.launches_called == n0 + 2

@@ -280,6 +280,7 @@ _HOST_PRE = r"""
 #include <vector>
 #define __device__
 #define __forceinline__ inline
+#define __noinline__
 #define __ldg(p) (*(p))
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 """ + _HOST_LANES
